@@ -1,0 +1,451 @@
+"""End-to-end FL simulation driver (Section VI), on PyTorch.
+
+Couples the analytic SAGIN orchestration (latency, offloading, handover)
+with real federated training on a (synthetic) dataset: every node that
+holds samples runs H local SGD iterations, models are aggregated with the
+eq.-(13) lambda weights, and the wall clock advances by the optimized
+round latency.  Produces accuracy-versus-training-time curves.
+
+:class:`RegionTrainer` is one region's FL job, advanced one round at a
+time by :meth:`RegionTrainer.step`; :func:`run_fl` steps a trainer
+``n_rounds`` times.  Both run on ``FLConfig.device`` (``"cuda"`` by
+default) and raise when CUDA is asked for and absent.
+
+Execution modes (``FLConfig.execution``):
+
+* ``"batched"`` — the cohort engine
+  (:class:`repro_torch.fl.cohort_engine.CohortEngine`): every
+  data-holding node's (H, B) batch stack is drawn through the shared RNG
+  stream and partitioned into geometric batch-width buckets; each
+  occupied bucket trains in one vmapped ``cohort_local_update`` and the
+  buckets' stacked params aggregate in one ``fedavg_stacked_multi`` call
+  (the Hopper ``fedavg_agg`` kernel on the card).
+  ``cohort_bucketing="global"`` keeps the single global-``Bmax`` layout
+  for comparison.
+* ``"sequential"`` — the reference loop: one ``local_update`` per node,
+  then ``fedavg`` over the list of models.
+* ``"auto"`` (default) — ``"batched"`` on CUDA, ``"sequential"`` on the
+  CPU.
+
+Both modes draw mini-batches from the same NumPy RNG stream in the same
+node order (ground 0..K-1, then air, then satellite), and so does the
+reference: at equal seeds and equal initial params, the latencies, wall
+clocks and plan cases are identical to the reference's, and accuracies
+agree up to float reduction-order noise.
+
+Not yet ported (ROADMAP): scenarios and the Walker-Star constellation
+(the ``sim`` slice), the fault hooks and quarantine (resilience), the
+cross-region federation snapshot (engine), serving, and the sharded
+cohort path (multi-GPU).  Their ``FLConfig`` fields keep their names but
+accept only the value this slice supports.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core import SAGINOrchestrator, build_default_sagin
+from ..core.network import SAGIN
+from ..data import FederatedPools, make_dataset, partition
+from ..device import resolve_device
+from ..models.cnn import build_model, model_bits
+from ..obs import resolve_obs
+from ..tree import tree_map
+from .aggregation import fedavg, fedavg_stacked
+from .client import cohort_local_update, evaluate, local_update
+from .cohort_engine import CohortEngine, cohort_tensors
+
+
+@dataclasses.dataclass
+class FLConfig:
+    dataset: str = "mnist"
+    iid: bool = True
+    alpha: float = 0.8
+    n_devices: int = 50
+    n_air: int = 5
+    n_rounds: int = 30
+    h_local: int = 5
+    lr: float = 0.05
+    batch_cap: int = 32
+    strategy: str = "adaptive"     # adaptive|none|air_ground|ground_space|static|proportional
+    rayleigh: bool = True
+    train_fraction: float = 0.05   # shrink dataset for fast runs
+    eval_size: int = 1024
+    seed: int = 0
+    use_constellation: bool = False  # only False until the sim slice
+    scenario: Optional[str] = None   # only None until the sim slice
+    region_index: int = 0            # labels this job's trace region
+    execution: str = "auto"        # auto|batched|sequential (module docstring)
+    cohort_batch_align: int = 32   # batched mode: bucket-width grid unit
+    cohort_bucketing: str = "geometric"  # geometric|global (module docstring)
+    cohort_client_align: int = 4   # batched mode: bucket client-count grid
+    guard_recompiles: bool = False  # only False until the tooling slice
+    cohort_sharding: str = "auto"  # auto|off: one device until multi-GPU
+    federation: Optional[str] = None  # only None until the engine slice
+    # Observability: an ObsConfig, a bare JSONL output path string, or
+    # None (disabled — the default, a no-op null tracer).
+    obs: Optional[object] = None
+    serve: Optional[object] = None  # only None until the serving slice
+    quarantine: Optional[bool] = None  # None|False until resilience
+    device: str = "cuda"           # where the job runs; no CPU fallback
+
+    def __post_init__(self):
+        waits = [
+            ("use_constellation", self.use_constellation, (False,),
+             "the sim/scenarios slice"),
+            ("scenario", self.scenario, (None,), "the sim/scenarios slice"),
+            ("guard_recompiles", self.guard_recompiles, (False,),
+             "the tooling slice"),
+            ("cohort_sharding", self.cohort_sharding, ("auto", "off"),
+             "the multi-GPU slice"),
+            ("federation", self.federation, (None,),
+             "the SAGINEngine slice"),
+            ("serve", self.serve, (None,), "the serving CNNBackend slice"),
+            ("quarantine", self.quarantine, (None, False),
+             "the fault-hooks slice"),
+        ]
+        for name, value, allowed, item in waits:
+            if value not in allowed:
+                raise ValueError(
+                    f"FLConfig.{name}={value!r} is not supported by "
+                    f"repro_torch yet (allowed: {allowed}); it comes with "
+                    f"{item} (ROADMAP)")
+
+    def resolved_execution(self) -> str:
+        if self.execution == "auto":
+            return ("batched" if torch.device(self.device).type == "cuda"
+                    else "sequential")
+        return self.execution
+
+
+@dataclasses.dataclass
+class FLResult:
+    config: FLConfig
+    times: List[float]             # cumulative training time (s)
+    accuracies: List[float]        # on the held-out eval batch
+    losses: List[float]            # mean TRAIN loss across this round's
+    #                              training nodes; NaN for a round in which
+    #                              no node trained
+    latencies: List[float]         # realized per-round latency
+    cases: List[int]
+    layer_portions: List[Dict[str, float]]  # data share per layer per round
+    # True when >= 1 node trained in the round (equivalently: losses[r]
+    # is finite)
+    participated: List[bool] = dataclasses.field(default_factory=list)
+
+    def time_to_accuracy(self, target: float) -> Optional[float]:
+        for t, a in zip(self.times, self.accuracies):
+            if a >= target:
+                return t
+        return None
+
+
+def _train_node(apply_fn, params, ds, idx, h, lr, batch_cap, rng, device):
+    from ..data.pipeline import batch_for_local_steps
+    batches = batch_for_local_steps(ds.x_train, ds.y_train, idx, h, rng,
+                                    max_batch=batch_cap)
+    if batches is None:
+        return None
+    xs, ys = batches
+    new_params, loss = local_update(
+        apply_fn, params, torch.from_numpy(xs).to(device),
+        torch.from_numpy(ys).to(device=device, dtype=torch.int64), lr)
+    return new_params, float(loss)
+
+
+def _node_pools(cfg: FLConfig, pools, offline=()) -> List[np.ndarray]:
+    """Index pools of every data-holding node, in canonical node order
+    (ground 0..K-1, air 0..N-1, satellite) — the order both execution
+    modes must share for RNG-stream equivalence.  Devices churned out
+    for the round (``offline``) sit out of training entirely."""
+    out = []
+    offline = set(offline)
+    for k in range(cfg.n_devices):
+        if k in offline:
+            continue
+        idx = pools.ground_all(k)
+        if len(idx):
+            out.append(idx)
+    for n in range(cfg.n_air):
+        if len(pools.air[n]):
+            out.append(pools.air[n])
+    if len(pools.sat):
+        out.append(pools.sat)
+    return out
+
+
+def _round_sequential(cfg: FLConfig, apply_fn, params, ds, node_pools,
+                      total, rng, device):
+    """Reference loop: one local update per node, then ``fedavg``.
+    Returns ``(params, losses)``."""
+    new_models, weights, losses = [], [], []
+    for idx in node_pools:
+        out = _train_node(apply_fn, params, ds, idx, cfg.h_local,
+                          cfg.lr, cfg.batch_cap, rng, device)
+        if out is None:
+            continue
+        model, loss = out
+        new_models.append(model)
+        weights.append(len(idx) / total)
+        losses.append(loss)
+    if new_models:
+        params = fedavg(new_models, weights)
+    return params, losses
+
+
+def _round_batched(cfg: FLConfig, apply_fn, params, ds, node_pools,
+                   total, rng, engine: CohortEngine):
+    """Cohort engine: size-bucketed vmapped local updates + one stacked
+    eq.-(13) aggregate (the Hopper ``fedavg_agg`` kernel on the card).
+    ``cfg.cohort_bucketing="global"`` keeps the single global-``Bmax``
+    layout for comparison.  Returns ``(params, losses)``."""
+    if cfg.cohort_bucketing == "global":
+        from ..data.pipeline import build_cohort
+        cohort = build_cohort(ds.x_train, ds.y_train, node_pools,
+                              cfg.h_local, rng, max_batch=cfg.batch_cap,
+                              pad_clients=cfg.n_devices + cfg.n_air + 1,
+                              batch_align=cfg.cohort_batch_align)
+        if cohort is None:
+            return params, []
+        xs, ys, mask = cohort_tensors(cohort, engine.device)
+        stacked, client_losses = cohort_local_update(apply_fn, params, xs,
+                                                     ys, mask, cfg.lr)
+        weights = torch.from_numpy(
+            (cohort.sizes / total).astype(np.float32)).to(engine.device)
+        params = fedavg_stacked(stacked, weights)
+        valid = cohort.sizes > 0
+        losses = [float(v) for v in client_losses.cpu().numpy()[valid]]
+        return params, losses
+    if cfg.cohort_bucketing != "geometric":
+        raise ValueError(f"FLConfig.cohort_bucketing must be 'geometric' "
+                         f"or 'global', got {cfg.cohort_bucketing!r}")
+    cohort = engine.build(ds.x_train, ds.y_train, node_pools, cfg.h_local,
+                          rng, max_batch=cfg.batch_cap)
+    if cohort is None:
+        return params, []
+    return engine.round(params, cohort, cfg.lr, total)
+
+
+class RegionTrainer:
+    """One region's complete FL job, advanced one round at a time.
+
+    Owns the region's dataset, index pools, model parameters, and SAGIN
+    orchestrator; :meth:`step` executes one full round (orchestration,
+    data placement, local training, aggregation, evaluation) and appends
+    to :attr:`result`.  Construction draws from the region's NumPy RNG in
+    the reference's order, so at equal seeds the port and the reference
+    see the same data, pools, plans and batches.
+
+    ``params`` (a parameter tree in the port's layout, e.g. from
+    :func:`repro_torch.convert.params_from_jax`) replaces the seeded
+    initial model; it is copied onto the job's device.
+    """
+
+    def __init__(self, cfg: FLConfig, params=None, tracer=None):
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.execution = cfg.resolved_execution()
+        if self.execution not in ("batched", "sequential"):
+            raise ValueError(
+                f"FLConfig.execution must be 'auto', 'batched' or "
+                f"'sequential', got {cfg.execution!r}")
+        self.tracer = tracer if tracer is not None else resolve_obs(cfg.obs)
+        self.region = None
+        self.region_seed = cfg.seed
+        self.rng = np.random.default_rng(cfg.seed)
+        self.ds = make_dataset(cfg.dataset, seed=cfg.seed,
+                               train_fraction=cfg.train_fraction,
+                               sample_seed=cfg.seed)
+        parts = partition(self.ds, n_devices=cfg.n_devices, iid=cfg.iid,
+                          alpha=cfg.alpha, seed=cfg.seed)
+        self.pools = FederatedPools.from_partitions(parts, cfg.n_air)
+
+        self.params, self.apply_fn = build_model(
+            self.ds.name, cfg.seed, self.device,
+            image_shape=self.ds.x_train.shape[1:])
+        if params is not None:
+            self.params = tree_map(
+                lambda t: t.detach().to(self.device, copy=True), params)
+        self.sagin = build_default_sagin(
+            n_devices=cfg.n_devices, n_air=cfg.n_air, alpha=cfg.alpha,
+            q_bits=self.ds.sample_bits, model_bits=model_bits(self.params),
+            rayleigh=cfg.rayleigh, seed=cfg.seed)
+        # sync actual per-device sizes into the network model
+        for k, p in enumerate(parts):
+            self.sagin.devices[k].n_samples = p.n_samples
+            self.sagin.devices[k].n_sensitive = p.n_sensitive
+
+        self.orch = SAGINOrchestrator(self.sagin, constellation=None,
+                                      sat_f_seed=cfg.seed,
+                                      strategy=cfg.strategy)
+        self._region_name = f"region{cfg.region_index}"
+        if self.orch.dynamics is not None:
+            self.orch.dynamics.tracer = self.tracer
+
+        self.cohort_engine = None
+        if self.execution == "batched":
+            self.cohort_engine = CohortEngine(
+                self.apply_fn, batch_align=cfg.cohort_batch_align,
+                client_align=cfg.cohort_client_align, device=self.device,
+                tracer=self.tracer, sharding=cfg.cohort_sharding)
+
+        self.result = FLResult(cfg, [], [], [], [], [], [])
+        eval_idx = self.rng.choice(len(self.ds.x_test),
+                                   size=min(cfg.eval_size,
+                                            len(self.ds.x_test)),
+                                   replace=False)
+        self.x_eval = torch.from_numpy(self.ds.x_test[eval_idx]).to(
+            self.device)
+        self.y_eval = torch.from_numpy(self.ds.y_test[eval_idx]).to(
+            device=self.device, dtype=torch.int64)
+
+    @property
+    def wall_clock(self) -> float:
+        return self.orch.wall_clock
+
+    @property
+    def total_samples(self) -> int:
+        """This region's data mass (constant: offloading conserves it)."""
+        return self.pools.total()
+
+    def step(self, r: int):
+        """Execute FL round ``r``: orchestrate, place data, train every
+        data-holding node, aggregate, evaluate.  Returns the round's
+        :class:`~repro_torch.core.scheduler.RoundRecord` and appends the
+        training metrics to :attr:`result`."""
+        cfg = self.cfg
+        tr = self.tracer
+        if tr.enabled:
+            tr.set_context(region=self._region_name, round=r,
+                           t_sim=self.orch.wall_clock)
+        rec = self.orch.step(r)
+        _apply_plan_to_pools(rec.plan, self.pools, self.sagin)
+        _sync_sizes(self.pools, self.sagin)
+
+        # ---- local training at every node that holds data ----------------
+        total = self.pools.total()
+        node_pools = _node_pools(cfg, self.pools,
+                                 offline=rec.offline_devices)
+        if self.execution == "batched":
+            self.params, losses = _round_batched(
+                cfg, self.apply_fn, self.params, self.ds, node_pools,
+                total, self.rng, self.cohort_engine)
+        else:
+            self.params, losses = _round_sequential(
+                cfg, self.apply_fn, self.params, self.ds, node_pools,
+                total, self.rng, self.device)
+
+        _, acc = evaluate(self.apply_fn, self.params, self.x_eval,
+                          self.y_eval)
+        res = self.result
+        res.times.append(self.orch.wall_clock)
+        res.accuracies.append(float(acc))
+        res.losses.append(float(np.mean(losses)) if losses
+                          else float("nan"))
+        res.participated.append(bool(losses))
+        res.latencies.append(rec.realized_latency)
+        res.cases.append(rec.plan.case)
+        n_ground = sum(len(self.pools.ground_all(k))
+                       for k in range(cfg.n_devices))
+        n_air = sum(len(a) for a in self.pools.air)
+        res.layer_portions.append({
+            "ground": n_ground / total, "air": n_air / total,
+            "space": len(self.pools.sat) / total})
+        if tr.enabled:
+            self._emit_round_spans(r, rec, res)
+        return rec
+
+    def _emit_round_spans(self, r: int, rec, res: FLResult):
+        """Trace one completed round: offload transfer, handover legs,
+        and the round span itself (enabled path only).  Purely
+        observational — reads the round record, writes spans."""
+        tr = self.tracer
+        t0 = rec.wall_clock_start
+        plan = rec.plan
+        q_bits = float(self.sagin.q_bits)
+        up = sum(sum(cp.d_ground_air.values()) + cp.d_air_space
+                 for cp in plan.clusters)
+        down = sum(sum(cp.d_air_ground.values()) + cp.d_space_air
+                   for cp in plan.clusters)
+        tr.span("offload", f"offload case{plan.case}", t_sim=t0,
+                case=plan.case, up_samples=up, down_samples=down,
+                bytes_moved=(up + down) * q_bits / 8.0)
+        tr.metrics.counter("offload.bytes").inc((up + down) * q_bits / 8.0)
+        tr.metrics.counter("offload.samples_up").inc(up)
+        tr.metrics.counter("offload.samples_down").inc(down)
+
+        sched = rec.schedule
+        prev = None
+        for leg in sched.legs:
+            if prev is not None and leg.handover_delay > 0:
+                tr.span("handover", f"sat{prev}->sat{leg.sat_index}",
+                        t_sim=t0 + leg.start_time - leg.handover_delay,
+                        dur_sim=leg.handover_delay,
+                        samples=leg.samples_processed)
+            prev = leg.sat_index
+        if sched.n_handovers:
+            tr.metrics.counter("handover.count").inc(sched.n_handovers)
+
+        ev = rec.events
+        uplink_delay = (sum(ev.uplink_delays.values())
+                        if ev is not None else 0.0)
+        tr.span("round", f"{self._region_name}/r{r}", t_sim=t0,
+                dur_sim=rec.realized_latency,
+                case=plan.case, latency_analytic=rec.latency,
+                # the no-participant loss sentinel is NaN — not valid
+                # strict JSON, so map it to None in the trace
+                loss=(res.losses[-1] if res.participated[-1] else None),
+                acc=res.accuracies[-1],
+                participated=res.participated[-1],
+                n_handovers=sched.n_handovers, t_space=sched.total_latency,
+                uplink_delay=uplink_delay)
+        tr.metrics.histogram("round.realized_latency_s").observe(
+            rec.realized_latency)
+        tr.metrics.histogram("round.overhead_s").observe(
+            rec.realized_latency - rec.latency)
+
+
+def run_fl(cfg: FLConfig, params=None, tracer=None) -> FLResult:
+    """Single-region FL job: a :class:`RegionTrainer` stepped to the end.
+
+    ``params`` replaces the seeded initial model (see
+    :class:`RegionTrainer`).  ``tracer`` (a
+    :class:`repro_torch.obs.Tracer`) overrides ``cfg.obs``; when this
+    function owns the tracer it also flushes the trace at the end.
+    """
+    own_tracer = tracer is None
+    trainer = RegionTrainer(cfg, params=params, tracer=tracer)
+    for r in range(cfg.n_rounds):
+        trainer.step(r)
+    if own_tracer:
+        trainer.tracer.flush()
+    return trainer.result
+
+
+def _apply_plan_to_pools(plan, pools: FederatedPools, sagin: SAGIN):
+    """Mirror the optimizer's (fractional) plan as integer index moves."""
+    for cp in plan.clusters:
+        n = cp.n
+        # downward: satellite -> air -> ground
+        if cp.d_space_air > 0:
+            pools.move_sat_to_air(n, int(round(cp.d_space_air)))
+        for k, d in sorted(cp.d_air_ground.items()):
+            pools.move_air_to_ground(n, k, int(round(d)))
+        # upward: ground -> air -> satellite
+        for k, d in sorted(cp.d_ground_air.items()):
+            pools.move_ground_to_air(k, n, int(round(d)))
+        if cp.d_air_space > 0:
+            pools.move_air_to_sat(n, int(round(cp.d_air_space)))
+
+
+def _sync_sizes(pools: FederatedPools, sagin: SAGIN):
+    """Make the analytic model's sizes match the realized pools."""
+    for k, dev in enumerate(sagin.devices):
+        dev.n_samples = len(pools.ground_all(k))
+        dev.n_sensitive = len(pools.ground_sensitive[k])
+    for n, air in enumerate(sagin.air_nodes):
+        air.n_samples = len(pools.air[n])
+    sagin.n_sat_samples = len(pools.sat)
