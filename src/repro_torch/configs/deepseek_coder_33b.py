@@ -1,0 +1,17 @@
+"""deepseek-coder-33b [dense]: 62L d_model=7168 56H (GQA kv=8)
+d_ff=19200 vocab=32256 — llama architecture. [arXiv:2401.14196]"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="deepseek-coder-33b",
+    arch_type="dense",
+    n_layers=62,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    d_ff=19200,
+    vocab_size=32256,
+    rope_theta=1e5,
+    sliding_window=8192,   # long_500k variant
+    source="arXiv:2401.14196",
+)

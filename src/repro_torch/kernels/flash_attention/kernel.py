@@ -1,0 +1,99 @@
+"""Wrapper of the Hopper ``flash_attention`` kernel
+(``csrc/flash_attention.cu``).
+
+The counterpart of the reference's Pallas kernel
+(``repro/kernels/flash_attention/kernel.py``): causal / sliding-window
+GQA attention with an f32 online softmax, output in q's type (f32 or
+bf16), for any sequence length.  The wrapper checks what the kernel
+takes and raises on anything else, allocates the output, launches on
+the current stream and never synchronizes.  ``flash_attention.launches``
+counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from ..build import load_library
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def build():
+    """Compile (at first use) and bind the kernel's C entry point."""
+    fn = load_library(SOURCE).flash_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: Optional[int]) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
+                         f"q on {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype} on {q.device}, got "
+                             f"{t.dtype} on {t.device}")
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
+        raise ValueError(f"flash_attention kernel takes q (B, Hq, S, D) and "
+                         f"k, v (B, Hkv, S, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if (k.shape[0] != b or k.shape[2:] != (s, d) or hkv < 1
+            or hq % hkv or s < 1):
+        raise ValueError(f"k/v shape {tuple(k.shape)} does not fit q "
+                         f"{tuple(q.shape)} (Hq must be a multiple of Hkv)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head dims "
+                         f"{HEAD_DIMS}, got {d}")
+    if not 1 <= b <= 65535 or not 1 <= hq <= 65535:
+        raise ValueError(f"batch and heads must lie in 1..65535, got "
+                         f"{b}, {hq}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention kernel needs {name} "
+                             f"contiguous and 16-byte aligned")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, Hq, S, D); k, v: (B, Hkv, S, D) on a CUDA device.
+
+    Returns (B, Hq, S, D) in q's type; ``window`` keeps the keys
+    ``c > r - window`` of row ``r`` (None: no window)."""
+    _check(q, k, v, window)
+    b, hq, s, d = q.shape
+    out = torch.empty_like(q)
+    launch = build()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    out.data_ptr(), b, hq, k.shape[1], s, d, int(causal),
+                    -1 if window is None else int(window), _DTYPES[q.dtype],
+                    stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc} "
+                           f"(q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                           f"{q.dtype})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

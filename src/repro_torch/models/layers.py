@@ -1,0 +1,397 @@
+"""Layer library of the transformer stack (plain-dict params, PyTorch).
+
+The counterpart of the reference's ``models/layers.py`` for this slice:
+RMSNorm / non-parametric LN, RoPE (interleaved pairs), GQA attention
+(+qk-norm, sliding window) with its one-token decode over a ring-buffer
+cache, SwiGLU, and the RWKV6 time / channel mix with their decode forms.
+Full-sequence attention runs through ``kernels/flash_attention`` and the
+RWKV6 recurrence through ``kernels/wkv6``; the decode steps are plain
+torch, as they are plain jnp in the reference.  MLA, MoE and Mamba raise
+``NotImplementedError`` until their slice.
+
+Weights keep the reference's ``(din, dout)`` layout, so every projection
+is ``x @ W`` as in the reference, and the dtype casts follow the
+reference's line for line: bf16 parity depends on them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..kernels.flash_attention import ops as fa
+from ..kernels.wkv6 import ops as wkv_ops
+
+_LATER = ("is not ported yet: it comes with the MLA, MoE and Mamba slice "
+          "(ROADMAP.md §1)")
+
+
+class Init:
+    """Leaf factory of ``init_params``: seeded normals scaled by
+    ``1/sqrt(fan_in)`` as the reference's ``_init``, and constants.  On
+    the ``meta`` device it allocates nothing and gives shapes only."""
+
+    def __init__(self, seed: int, device: torch.device):
+        self.device = device
+        self.gen = (None if device.type == "meta" else
+                    torch.Generator(device=device).manual_seed(seed))
+
+    def normal(self, shape, scale_dim: int, dtype: torch.dtype):
+        if self.gen is None:
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        x = torch.randn(shape, generator=self.gen, device=self.device,
+                        dtype=torch.float32)
+        return (x * (1.0 / math.sqrt(scale_dim))).to(dtype)
+
+    def full(self, shape, value: float):
+        return torch.full(shape, value, dtype=torch.float32,
+                          device=self.device)
+
+
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms ----------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+def rmsnorm_init(cfg: ModelConfig, init: Init, dim: Optional[int] = None):
+    if cfg.norm_type == "nonparametric_ln":
+        return {}
+    return {"scale": init.full((dim or cfg.d_model,), 1.0)}
+
+
+def norm_apply(params, x, cfg: ModelConfig):
+    """Statistics in f32, the (broadcast) factor applied in x's type."""
+    xf = x.to(torch.float32)
+    if cfg.norm_type == "nonparametric_ln":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, unbiased=False, keepdim=True)
+        inv = torch.rsqrt(var + 1e-5)
+        return (x - mu.to(x.dtype)) * inv.to(x.dtype)
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    factor = torch.rsqrt(ms + 1e-6)
+    return x * factor.to(x.dtype) * params["scale"].to(x.dtype)
+
+
+def head_rmsnorm(x, scale):
+    """qk-norm: RMS-normalize the head dim. x: (..., D_head)."""
+    xf = x.to(torch.float32)
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    factor = torch.rsqrt(ms + 1e-6)
+    return x * factor.to(x.dtype) * scale.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE -----------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+def rope_frequencies(dim: int, theta: float, device) -> torch.Tensor:
+    # theta stays a Python scalar: a tensor made from it on the card
+    # would be a blocking host-to-device copy in every layer
+    exps = -torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return theta ** exps
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, H, S, D); positions: (S,) or (B, S).
+
+    Rotates the interleaved pairs ``(x[..., 0::2], x[..., 1::2])``;
+    angles in f32, the rotation in x's type."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)               # (D/2,)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    ang = ang[None, None] if positions.ndim == 1 else ang[:, None]
+    cos = torch.cos(ang).to(x.dtype)
+    sin = torch.sin(ang).to(x.dtype)
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention ---------------------------------------------------------------
+# ---------------------------------------------------------------------------
+def gqa_init(cfg: ModelConfig, init: Init):
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = param_dtype(cfg)
+    p = {
+        "wq": init.normal((d, hq * hd), d, dt),
+        "wk": init.normal((d, hkv * hd), d, dt),
+        "wv": init.normal((d, hkv * hd), d, dt),
+        "wo": init.normal((hq * hd, d), hq * hd, dt),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = init.full((hd,), 1.0)
+        p["k_norm"] = init.full((hd,), 1.0)
+    return p
+
+
+def _split_heads(x, n_heads: int, head_dim: int):
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, head_dim).transpose(1, 2)
+
+
+def gqa_apply(p, x, cfg: ModelConfig, positions,
+              window: Optional[int] = None):
+    """Full-sequence causal attention (prefill), through the kernel on a
+    CUDA tensor.  ``window`` defaults to ``cfg.sliding_window``."""
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _split_heads(x @ p["wq"], hq, hd)
+    k = _split_heads(x @ p["wk"], hkv, hd)
+    v = _split_heads(x @ p["wv"], hkv, hd)
+    if cfg.qk_norm:
+        q = head_rmsnorm(q, p["q_norm"])
+        k = head_rmsnorm(k, p["k_norm"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    win = window if window is not None else cfg.sliding_window
+    o = fa.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                     causal=True, window=win)
+    b, _, s, _ = o.shape
+    return o.transpose(1, 2).reshape(b, s, hq * hd) @ p["wo"]
+
+
+def gqa_init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                   device):
+    shape = (batch, cfg.n_kv_heads, cache_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_decode(p, x, cache, pos: int, cfg: ModelConfig):
+    """One-token decode. x: (B, 1, D); cache k/v: (B, Hkv, L, hd).
+
+    ``pos`` is the absolute position of the new token; the cache is a
+    ring buffer and the new k/v go to slot ``pos % L``, written into the
+    cache's tensors in place (the counterpart of the reference's donated
+    cache).  Returns (out (B, 1, D), cache).
+    """
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b = x.shape[0]
+    q = _split_heads(x @ p["wq"], hq, hd)                    # (B,Hq,1,hd)
+    k = _split_heads(x @ p["wk"], hkv, hd)
+    v = _split_heads(x @ p["wv"], hkv, hd)
+    if cfg.qk_norm:
+        q = head_rmsnorm(q, p["q_norm"])
+        k = head_rmsnorm(k, p["k_norm"])
+    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k = apply_rope(k, posv, cfg.rope_theta)
+    cache_len = cache["k"].shape[2]
+    slot = pos % cache_len
+    cache["k"][:, :, slot] = k[:, :, 0].to(cache["k"].dtype)
+    cache["v"][:, :, slot] = v[:, :, 0].to(cache["v"].dtype)
+    # slots written so far: <= pos and (ring) within the window
+    valid = torch.arange(cache_len, device=x.device) < min(pos + 1,
+                                                           cache_len)
+    # (B, Hkv, group, hd): query head h reads kv head h // group, as the
+    # reference's repeat does, without copying the cache per query head
+    group = hq // hkv
+    qg = q.to(torch.float32).reshape(b, hkv, group, hd)
+    scores = torch.einsum("bhgd,bhkd->bhgk", qg,
+                          cache["k"].to(torch.float32)) / math.sqrt(hd)
+    scores = scores.masked_fill(~valid, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhgk,bhkd->bhgd", probs, cache["v"].to(torch.float32))
+    o = o.to(x.dtype).reshape(b, 1, hq * hd)
+    return o @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# Later slices ----------------------------------------------------------------
+# ---------------------------------------------------------------------------
+def mla_init(cfg: ModelConfig, init: Init):
+    raise NotImplementedError(f"MLA attention {_LATER}")
+
+
+def mla_apply(p, x, cfg: ModelConfig, positions):
+    raise NotImplementedError(f"MLA attention {_LATER}")
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                   device):
+    raise NotImplementedError(f"MLA attention {_LATER}")
+
+
+def mla_decode(p, x, cache, pos, cfg: ModelConfig):
+    raise NotImplementedError(f"MLA attention {_LATER}")
+
+
+def moe_init(cfg: ModelConfig, init: Init):
+    raise NotImplementedError(f"the MoE FFN {_LATER}")
+
+
+def moe_apply(p, x, cfg: ModelConfig):
+    raise NotImplementedError(f"the MoE FFN {_LATER}")
+
+
+def mamba_init(cfg: ModelConfig, init: Init):
+    raise NotImplementedError(f"the Mamba block {_LATER}")
+
+
+def mamba_apply(p, x, cfg: ModelConfig):
+    raise NotImplementedError(f"the Mamba block {_LATER}")
+
+
+def mamba_init_cache(cfg: ModelConfig, batch: int, dtype, device):
+    raise NotImplementedError(f"the Mamba block {_LATER}")
+
+
+def mamba_decode(p, x, cache, cfg: ModelConfig):
+    raise NotImplementedError(f"the Mamba block {_LATER}")
+
+
+# ---------------------------------------------------------------------------
+# FFN -------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+def swiglu_init(cfg: ModelConfig, init: Init, d_ff: Optional[int] = None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    dt = param_dtype(cfg)
+    return {"w1": init.normal((d, f), d, dt),
+            "w3": init.normal((d, f), d, dt),
+            "w2": init.normal((f, d), f, dt)}
+
+
+def swiglu_apply(p, x):
+    return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 -----------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+def _rwkv_heads(cfg: ModelConfig):
+    h = max(1, cfg.d_model // 64)
+    return h, cfg.d_model // h
+
+
+def rwkv6_init(cfg: ModelConfig, init: Init):
+    d = cfg.d_model
+    h, hd = _rwkv_heads(cfg)
+    dt = param_dtype(cfg)
+    return {
+        "time": {
+            "mix_r": init.full((d,), 0.5),
+            "mix_k": init.full((d,), 0.5),
+            "mix_v": init.full((d,), 0.5),
+            "mix_w": init.full((d,), 0.5),
+            "mix_g": init.full((d,), 0.5),
+            "wr": init.normal((d, d), d, dt),
+            "wk": init.normal((d, d), d, dt),
+            "wv": init.normal((d, d), d, dt),
+            "ww": init.normal((d, d), d, dt),      # data-dependent decay
+            "wg": init.normal((d, d), d, dt),
+            "w_bias": init.full((d,), -2.0),
+            "u": init.normal((h, hd), hd, torch.float32),
+            "wo": init.normal((d, d), d, dt),
+            "ln_scale": init.full((hd,), 1.0),
+        },
+        "channel": {
+            "mix_k": init.full((d,), 0.5),
+            "mix_r": init.full((d,), 0.5),
+            "wck": init.normal((d, cfg.d_ff), d, dt),
+            "wcv": init.normal((cfg.d_ff, d), cfg.d_ff, dt),
+            "wcr": init.normal((d, d), d, dt),
+        },
+    }
+
+
+def _token_shift(x, prev=None):
+    """Shift the sequence right by one; prev: (B, D) last token of the
+    prior chunk (zeros when None)."""
+    prev = torch.zeros_like(x[:, :1]) if prev is None else prev[:, None]
+    return torch.cat([prev, x[:, :-1]], dim=1)
+
+
+def rwkv6_time_mix(p, x, cfg: ModelConfig, shift_prev=None):
+    """RWKV6 time-mix over a full sequence (prefill), with the WKV
+    recurrence through the kernel on a CUDA tensor.
+
+    Returns (out, last x)."""
+    b, s, d = x.shape
+    h, hd = _rwkv_heads(cfg)
+    xs = _token_shift(x, shift_prev)
+
+    def mix(m):
+        return x * m.to(x.dtype) + xs * (1.0 - m).to(x.dtype)
+
+    r = mix(p["mix_r"]) @ p["wr"]
+    k = mix(p["mix_k"]) @ p["wk"]
+    v = mix(p["mix_v"]) @ p["wv"]
+    g = mix(p["mix_g"]) @ p["wg"]
+    w_raw = mix(p["mix_w"]) @ p["ww"]
+    w = torch.exp(-torch.exp(w_raw.to(torch.float32) + p["w_bias"]))
+
+    def heads(t):
+        return t.reshape(b, s, h, hd).transpose(1, 2).contiguous()
+
+    o = wkv_ops.wkv(heads(r), heads(k), heads(v), heads(w.to(x.dtype)),
+                    p["u"].to(x.dtype).contiguous())
+    # group-norm over each head, then the gate
+    o = head_rmsnorm(o, p["ln_scale"])
+    o = o.transpose(1, 2).reshape(b, s, d)
+    o = o * F.silu(g.to(torch.float32)).to(o.dtype)
+    return o @ p["wo"], x[:, -1]
+
+
+def rwkv6_channel_mix(p, x, shift_prev=None):
+    xs = _token_shift(x, shift_prev)
+    # the f32 mix params promote x (as in the reference); cast back
+    # before the matmuls
+    xk = x * p["mix_k"] + xs * (1.0 - p["mix_k"])
+    xr = x * p["mix_r"] + xs * (1.0 - p["mix_r"])
+    k = torch.square(torch.relu(xk.to(x.dtype) @ p["wck"]))
+    kv = k @ p["wcv"]
+    gate = torch.sigmoid((xr.to(x.dtype) @ p["wcr"]).to(torch.float32))
+    return gate.to(x.dtype) * kv, x[:, -1]
+
+
+def rwkv6_init_cache(cfg: ModelConfig, batch: int, dtype, device):
+    d = cfg.d_model
+    h, hd = _rwkv_heads(cfg)
+    return {
+        "wkv": torch.zeros((batch, h, hd, hd), dtype=torch.float32,
+                           device=device),
+        "shift_t": torch.zeros((batch, d), dtype=dtype, device=device),
+        "shift_c": torch.zeros((batch, d), dtype=dtype, device=device),
+    }
+
+
+def rwkv6_time_mix_decode(p, x, cache_wkv, shift_prev, cfg: ModelConfig):
+    """One-token time-mix. x: (B, 1, D). Returns (out, new state, x_t)."""
+    b, _, d = x.shape
+    h, hd = _rwkv_heads(cfg)
+    xt = x[:, 0]
+    xs = shift_prev
+
+    def mix(m):
+        return xt * m + xs * (1.0 - m)
+
+    r = mix(p["mix_r"]).to(x.dtype) @ p["wr"]
+    k = mix(p["mix_k"]).to(x.dtype) @ p["wk"]
+    v = mix(p["mix_v"]).to(x.dtype) @ p["wv"]
+    g = mix(p["mix_g"]).to(x.dtype) @ p["wg"]
+    w_raw = mix(p["mix_w"]).to(x.dtype) @ p["ww"]
+    w = torch.exp(-torch.exp(w_raw.to(torch.float32) + p["w_bias"]))
+
+    def hsplit(t):
+        return t.reshape(b, h, hd)
+
+    s_new, o = wkv_ops.wkv_step(cache_wkv, hsplit(r), hsplit(k), hsplit(v),
+                                hsplit(w.to(x.dtype)), p["u"].to(x.dtype))
+    o = head_rmsnorm(o, p["ln_scale"])
+    o = o.reshape(b, d)
+    o = o * F.silu(g.to(torch.float32)).to(o.dtype)
+    return (o @ p["wo"])[:, None], s_new, xt
+
+
+def rwkv6_channel_mix_decode(p, x, shift_prev):
+    xt = x[:, 0]
+    xk = xt * p["mix_k"] + shift_prev * (1.0 - p["mix_k"])
+    xr = xt * p["mix_r"] + shift_prev * (1.0 - p["mix_r"])
+    k = torch.square(torch.relu(xk.to(x.dtype) @ p["wck"]))
+    kv = k @ p["wcv"]
+    gate = torch.sigmoid((xr.to(x.dtype) @ p["wcr"]).to(torch.float32))
+    return (gate.to(x.dtype) * kv)[:, None], xt

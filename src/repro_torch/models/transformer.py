@@ -1,0 +1,260 @@
+"""Decoder-only transformer composed from ``ModelConfig``: inference.
+
+The counterpart of the reference's ``models/transformer.py`` for
+prefill and decode: block templates, ``init_params``, ``forward``,
+``logits_fn``, the decode cache and ``serve_step``.  The reference
+stacks every block's params along a leading layer axis and scans over
+it; here ``params["blocks"]`` is a list with one dict per block, and the
+layer loop is a Python loop.  Training (``make_train_step``, the chunked
+cross-entropy) comes with the training slice; MLA, MoE and Mamba blocks
+raise ``NotImplementedError`` until theirs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from . import layers as L
+
+
+# ---------------------------------------------------------------------------
+# Block templates -------------------------------------------------------------
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Sublayer:
+    mixer: str       # gqa|mla|mamba|rwkv6
+    ffn: str         # swiglu|moe|rwkv_channel
+
+
+def block_template(cfg: ModelConfig) -> List[Sublayer]:
+    """The repeating unit of the layer stack. Length = block size."""
+    size = cfg.attn_every if cfg.attn_every else 1
+    subs = []
+    for j in range(size):
+        if cfg.arch_type == "ssm" and cfg.ssm_type == "rwkv6":
+            mixer = "rwkv6"
+        elif cfg.attn_every:
+            mixer = "gqa" if j == 0 else "mamba"
+        elif cfg.attention == "mla":
+            mixer = "mla"
+        else:
+            mixer = "gqa"
+        if mixer == "rwkv6":
+            ffn = "rwkv_channel"
+        elif cfg.n_experts and (j % cfg.moe_every) == cfg.moe_every - 1:
+            ffn = "moe"
+        else:
+            ffn = "swiglu"
+        subs.append(Sublayer(mixer, ffn))
+    return subs
+
+
+def n_blocks(cfg: ModelConfig) -> int:
+    size = cfg.attn_every if cfg.attn_every else 1
+    if cfg.n_layers % size:
+        raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of the "
+                         f"block size {size}")
+    return cfg.n_layers // size
+
+
+# ---------------------------------------------------------------------------
+# Init ------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+def _init_sublayer(cfg: ModelConfig, init: L.Init, sub: Sublayer) -> Dict:
+    p: Dict[str, Any] = {"norm1": L.rmsnorm_init(cfg, init), "norm2": {}}
+    if sub.mixer == "gqa":
+        p["mixer"] = L.gqa_init(cfg, init)
+    elif sub.mixer == "mla":
+        p["mixer"] = L.mla_init(cfg, init)
+    elif sub.mixer == "mamba":
+        p["mixer"] = L.mamba_init(cfg, init)
+    elif sub.mixer == "rwkv6":
+        p["mixer"] = L.rwkv6_init(cfg, init)
+    if sub.ffn == "swiglu":
+        p["norm2"] = L.rmsnorm_init(cfg, init)
+        p["ffn"] = L.swiglu_init(cfg, init)
+    elif sub.ffn == "moe":
+        p["norm2"] = L.rmsnorm_init(cfg, init)
+        p["ffn"] = L.moe_init(cfg, init)
+    elif sub.ffn == "rwkv_channel":
+        p["norm2"] = L.rmsnorm_init(cfg, init)
+        # channel-mix params live inside rwkv6_init's "channel" entry
+    return p
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
+    """Random params from ``seed``, with the reference's tree, shapes,
+    dtypes and ``1/sqrt(fan_in)`` normal scale (not its numbers: a
+    ``torch.Generator`` draws them).  On ``device="meta"`` the tree holds
+    shapes and dtypes only.  ``params["blocks"]`` is a list of
+    ``n_blocks(cfg)`` dicts ``{"sub0": ..., ...}``."""
+    dev = resolve_device(device)
+    init = L.Init(seed, dev)
+    subs = block_template(cfg)
+    blocks = [{f"sub{j}": _init_sublayer(cfg, init, sub)
+               for j, sub in enumerate(subs)} for _ in range(n_blocks(cfg))]
+    dt = L.param_dtype(cfg)
+    params: Dict[str, Any] = {"blocks": blocks,
+                              "final_norm": L.rmsnorm_init(cfg, init)}
+    if cfg.input_mode == "tokens":
+        params["embed"] = {"w": init.normal((cfg.padded_vocab, cfg.d_model),
+                                            cfg.d_model, dt)}
+    else:
+        # modality-frontend stub: inputs arrive as embeddings; a light
+        # input projection stands in for the (stubbed) projector
+        params["in_proj"] = {"w": init.normal((cfg.d_model, cfg.d_model),
+                                              cfg.d_model, dt)}
+    if not (cfg.tie_embeddings and cfg.input_mode == "tokens"):
+        params["lm_head"] = {"w": init.normal((cfg.d_model,
+                                               cfg.padded_vocab),
+                                              cfg.d_model, dt)}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill) -----------------------------------------------------------
+# ---------------------------------------------------------------------------
+def _apply_sublayer(sp, x, cfg: ModelConfig, sub: Sublayer, positions):
+    h = L.norm_apply(sp["norm1"], x, cfg)
+    if sub.mixer == "gqa":
+        y = L.gqa_apply(sp["mixer"], h, cfg, positions)
+    elif sub.mixer == "mla":
+        y = L.mla_apply(sp["mixer"], h, cfg, positions)
+    elif sub.mixer == "mamba":
+        y = L.mamba_apply(sp["mixer"], h, cfg)
+    elif sub.mixer == "rwkv6":
+        y, _ = L.rwkv6_time_mix(sp["mixer"]["time"], h, cfg)
+    x = x + y
+    h = L.norm_apply(sp["norm2"], x, cfg)
+    if sub.ffn == "swiglu":
+        x = x + L.swiglu_apply(sp["ffn"], h)
+    elif sub.ffn == "moe":
+        x = x + L.moe_apply(sp["ffn"], h, cfg)
+    elif sub.ffn == "rwkv_channel":
+        y, _ = L.rwkv6_channel_mix(sp["mixer"]["channel"], h)
+        x = x + y
+    return x
+
+
+def embed_inputs(params, cfg: ModelConfig, inputs):
+    if cfg.input_mode == "tokens":
+        return F.embedding(inputs, params["embed"]["w"])
+    return inputs.to(L.param_dtype(cfg)) @ params["in_proj"]["w"]
+
+
+def unembed(params, cfg: ModelConfig, h):
+    if "lm_head" in params:
+        return h @ params["lm_head"]["w"]
+    return h @ params["embed"]["w"].T
+
+
+def forward(params, cfg: ModelConfig, inputs,
+            positions: Optional[torch.Tensor] = None):
+    """Final hidden states (B, S, D) and the MoE aux loss (0: no MoE in
+    this slice).  inputs: (B, S) int tokens or (B, S, D) embeddings."""
+    s = inputs.shape[1]
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=inputs.device)
+    subs = block_template(cfg)
+    x = embed_inputs(params, cfg, inputs)
+    for block in params["blocks"]:
+        for j, sub in enumerate(subs):
+            x = _apply_sublayer(block[f"sub{j}"], x, cfg, sub, positions)
+    x = L.norm_apply(params["final_norm"], x, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def logits_fn(params, cfg: ModelConfig, inputs, positions=None):
+    h, aux = forward(params, cfg, inputs, positions)
+    return unembed(params, cfg, h), aux
+
+
+# ---------------------------------------------------------------------------
+# Decode (serve_step) --------------------------------------------------------
+# ---------------------------------------------------------------------------
+def init_sublayer_cache(cfg: ModelConfig, sub: Sublayer, batch: int,
+                        cache_len: int, dtype, device):
+    if sub.mixer == "gqa":
+        return L.gqa_init_cache(cfg, batch, cache_len, dtype, device)
+    if sub.mixer == "rwkv6":
+        return L.rwkv6_init_cache(cfg, batch, dtype, device)
+    if sub.mixer == "mla":
+        return L.mla_init_cache(cfg, batch, cache_len, dtype, device)
+    if sub.mixer == "mamba":
+        return L.mamba_init_cache(cfg, batch, dtype, device)
+    raise ValueError(sub.mixer)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
+               device="cuda") -> List[Dict]:
+    """Decode cache: one dict ``{"sub0": ..., ...}`` per block.  For
+    sliding-window configs the attention cache holds
+    min(cache_len, window) positions — the point of SWA."""
+    dev = resolve_device(device)
+    dtype = dtype or L.param_dtype(cfg)
+    subs = block_template(cfg)
+    out = []
+    for _ in range(n_blocks(cfg)):
+        block = {}
+        for j, sub in enumerate(subs):
+            clen = cache_len
+            if sub.mixer == "gqa" and cfg.sliding_window is not None:
+                clen = min(cache_len, cfg.sliding_window)
+            block[f"sub{j}"] = init_sublayer_cache(cfg, sub, batch, clen,
+                                                   dtype, dev)
+        out.append(block)
+    return out
+
+
+def _decode_sublayer(sp, cache, x, pos: int, cfg: ModelConfig,
+                     sub: Sublayer):
+    h = L.norm_apply(sp["norm1"], x, cfg)
+    if sub.mixer == "gqa":
+        y, cache = L.gqa_decode(sp["mixer"], h, cache, pos, cfg)
+    elif sub.mixer == "mla":
+        y, cache = L.mla_decode(sp["mixer"], h, cache, pos, cfg)
+    elif sub.mixer == "mamba":
+        y, cache = L.mamba_decode(sp["mixer"], h, cache, cfg)
+    elif sub.mixer == "rwkv6":
+        y, s_new, xt = L.rwkv6_time_mix_decode(
+            sp["mixer"]["time"], h, cache["wkv"], cache["shift_t"], cfg)
+        cache = dict(cache, wkv=s_new, shift_t=xt)
+    x = x + y
+    h = L.norm_apply(sp["norm2"], x, cfg)
+    if sub.ffn == "swiglu":
+        x = x + L.swiglu_apply(sp["ffn"], h)
+    elif sub.ffn == "moe":
+        x = x + L.moe_apply(sp["ffn"], h, cfg)
+    elif sub.ffn == "rwkv_channel":
+        y, xc = L.rwkv6_channel_mix_decode(sp["mixer"]["channel"], h,
+                                           cache["shift_c"])
+        cache = dict(cache, shift_c=xc)
+        x = x + y
+    return x, cache
+
+
+def serve_step(params, cfg: ModelConfig, cache, inputs, pos: int):
+    """Decode ONE token for the whole batch.
+
+    inputs: (B, 1) int tokens or (B, 1, D) embeddings; ``pos`` the
+    absolute position of the token.  Returns (logits (B, V) f32,
+    new_cache).  The attention caches' K/V tensors are written in place,
+    so ``cache`` is spent: use the returned one.
+    """
+    subs = block_template(cfg)
+    x = embed_inputs(params, cfg, inputs)
+    new_cache = []
+    for block, block_cache in zip(params["blocks"], cache):
+        new_block = {}
+        for j, sub in enumerate(subs):
+            x, new_block[f"sub{j}"] = _decode_sublayer(
+                block[f"sub{j}"], block_cache[f"sub{j}"], x, pos, cfg, sub)
+        new_cache.append(new_block)
+    x = L.norm_apply(params["final_norm"], x, cfg)
+    logits = unembed(params, cfg, x)[:, 0]
+    return logits.to(torch.float32), new_cache

@@ -1,0 +1,125 @@
+"""Parity of the port's flash_attention op with the reference's.
+
+The same numpy inputs go through the reference's Pallas kernel in
+interpret mode and its jnp oracle, and through the port's plain versions
+(``ref.attention``, ``ref.blocked_attention``) and its dispatcher on the
+CPU, over the reference's sweep and tolerances (``tests/test_kernels.py``:
+f32 2e-5, bf16 5e-2).  The CUDA kernel itself runs only on a card: its
+tests are in ``test_torch_kernels_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import kernel as jax_kernel
+from repro.kernels.flash_attention import ref as jax_ref
+from repro_torch.kernels.flash_attention import kernel, ops, ref
+
+SWEEP = [(1, 2, 2, 128, 32),      # MHA
+         (2, 4, 2, 256, 64),      # GQA 2:1
+         (1, 8, 1, 128, 64),      # MQA
+         (2, 4, 4, 512, 16)]
+
+
+def _inputs(b, hq, hkv, s, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, hq, s, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, s, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, s, d)).astype(np.float32))
+
+
+def _jax(arrays, dtype):
+    return [jnp.asarray(a, getattr(jnp, dtype)) for a in arrays]
+
+
+def _torch(arrays, dtype):
+    return [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+
+
+def _np(x):
+    return np.asarray(x.to(torch.float32).numpy() if isinstance(
+        x, torch.Tensor) else np.asarray(x, np.float32))
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", SWEEP)
+@pytest.mark.parametrize("window", [None, 64])
+def test_port_matches_reference_kernel_f32(b, hq, hkv, s, d, window):
+    arrays = _inputs(b, hq, hkv, s, d)
+    q, k, v = _jax(arrays, "float32")
+    want_kernel = jax_kernel.flash_attention(q, k, v, causal=True,
+                                             window=window, block_q=64,
+                                             block_k=64, interpret=True)
+    want_ref = jax_ref.attention(q, k, v, causal=True, window=window)
+    tq, tk, tv = _torch(arrays, "float32")
+    for got in (ref.attention(tq, tk, tv, causal=True, window=window),
+                ref.blocked_attention(tq, tk, tv, causal=True,
+                                      window=window, block=64),
+                ops.attention(tq, tk, tv, causal=True, window=window)):
+        assert got.dtype == tq.dtype and got.shape == tq.shape
+        np.testing.assert_allclose(_np(got), _np(want_kernel), rtol=2e-5,
+                                   atol=2e-5)
+        np.testing.assert_allclose(_np(got), _np(want_ref), rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_port_matches_reference_kernel_bf16():
+    arrays = _inputs(1, 2, 2, 128, 64)
+    q, k, v = _jax(arrays, "bfloat16")
+    want = jax_kernel.flash_attention(q, k, v, block_q=64, block_k=64,
+                                      interpret=True)
+    tq, tk, tv = _torch(arrays, "bfloat16")
+    for got in (ref.attention(tq, tk, tv), ops.attention(tq, tk, tv)):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(got), _np(want), rtol=5e-2,
+                                   atol=5e-2)
+
+
+def test_window_one_returns_v():
+    """Property: with window=1 each row attends only to itself."""
+    q, k, v = _torch(_inputs(1, 1, 1, 128, 16, seed=3), "float32")
+    for got in (ops.attention(q, k, v, causal=True, window=1),
+                ref.blocked_attention(q, k, v, causal=True, window=1,
+                                      block=64)):
+        np.testing.assert_allclose(got[0, 0].numpy(), v[0, 0].numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_blocked_matches_exact_and_reference_at_4096():
+    """S = 4096 sends the CPU dispatcher to the blocked form."""
+    arrays = _inputs(1, 2, 1, 4096, 32, seed=2)
+    tq, tk, tv = _torch(arrays, "float32")
+    got = ops.attention(tq, tk, tv, causal=True)
+    exact = ref.attention(tq, tk, tv, causal=True)
+    np.testing.assert_allclose(got.numpy(), exact.numpy(), rtol=2e-5,
+                               atol=2e-5)
+    q, k, v = _jax(arrays, "float32")
+    want = jax_ref.blocked_attention(q, k, v, causal=True, block=1024)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_blocked_non_causal_window_and_block_that_does_not_divide():
+    """Non-causal with a window (row r sees the keys c > r - window) in
+    blocks of 32 equals the exact form; a block that does not divide S
+    raises."""
+    q, k, v = _torch(_inputs(1, 1, 1, 128, 16, seed=4), "float32")
+    got = ref.blocked_attention(q, k, v, causal=False, window=16, block=32)
+    want = ref.attention(q, k, v, causal=False, window=16)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5,
+                               atol=2e-5)
+    with pytest.raises(ValueError):
+        ref.blocked_attention(q, k, v, block=48)
+
+
+def test_cpu_tensor_never_launches():
+    q, k, v = _torch(_inputs(1, 2, 1, 64, 16), "float32")
+    before = kernel.flash_attention.launches
+    ops.attention(q, k, v)
+    assert kernel.flash_attention.launches == before
+
+
+def test_kernel_wrapper_rejects_cpu_tensor():
+    q, k, v = _torch(_inputs(1, 2, 1, 64, 16), "float32")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.flash_attention(q, k, v)

@@ -31,6 +31,10 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     mods = _port_modules()
     assert "repro_torch.fl.rounds" in mods
     assert "repro_torch.kernels.fedavg_agg.kernel" in mods
+    for name in ("kernels.flash_attention.kernel", "kernels.wkv6.kernel",
+                 "models.layers", "models.transformer", "configs.registry",
+                 "launch.train", "launch.serve", "serve.backends"):
+        assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -11,6 +11,10 @@ import pytest
 import torch
 
 from repro_torch.kernels.fedavg_agg import kernel, ops, ref
+from repro_torch.kernels.flash_attention import (
+    kernel as fa_kernel, ops as fa_ops, ref as fa_ref)
+from repro_torch.kernels.wkv6 import (
+    kernel as wkv_kernel, ops as wkv_ops, ref as wkv_ref)
 
 # the reference's sweep (tests/test_kernels.py), the MNIST CNN's largest
 # leaf at the paper setup's 68 clients, and a ragged width
@@ -22,7 +26,7 @@ DTYPES = [("float32", 1e-6), ("bfloat16", 2e-2)]
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the fedavg_agg kernel has no "
+        pytest.skip("needs a CUDA device (the port's CUDA kernels have no "
                     "CPU mode)")
     return torch.device("cuda")
 
@@ -78,3 +82,145 @@ def test_fedavg_agg_rejects_what_it_does_not_take(cuda_device):
         kernel.weighted_aggregate(x, w[:3])
     with pytest.raises(ValueError):
         kernel.weighted_aggregate(x, w.double())
+
+
+# ---------------------------------------------------------------------------
+# flash_attention -------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# the reference's sweep (tests/test_kernels.py), llama3.2-3b's head dim
+# (also over 32 KV tiles, as in its prefill), and a ragged sequence
+# length that no 64-row tile divides
+FLASH_SHAPES = [(1, 2, 2, 128, 32), (2, 4, 2, 256, 64), (1, 8, 1, 128, 64),
+                (2, 4, 4, 512, 16), (1, 6, 2, 256, 128),
+                (1, 4, 2, 2048, 128), (2, 4, 2, 200, 64)]
+# bf16: kernel and plain version both sum in f32 from the same bf16
+# inputs and round the output once, so they differ by about one bf16
+# rounding (2**-8 relative); 1e-2 covers it with room and is well below
+# the outputs' own size (|out| ~ 0.03 and up for these random inputs)
+FLASH_TOLERANCE = [("float32", 2e-5), ("bfloat16", 1e-2)]
+
+
+def _normal(rng, shape, device, dtype, scale=1.0):
+    x = torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32))
+    return x.to(device=device, dtype=getattr(torch, dtype))
+
+
+def _assert_close(got, want, tol):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,d", FLASH_SHAPES)
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("dtype,tol", FLASH_TOLERANCE)
+def test_flash_attention_matches_plain_version(cuda_device, b, hq, hkv, s,
+                                               d, window, dtype, tol):
+    rng = np.random.default_rng(0)
+    q = _normal(rng, (b, hq, s, d), cuda_device, dtype)
+    k = _normal(rng, (b, hkv, s, d), cuda_device, dtype)
+    v = _normal(rng, (b, hkv, s, d), cuda_device, dtype)
+    before = fa_kernel.flash_attention.launches
+    got = fa_ops.attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _assert_close(got, fa_ref.attention(q, k, v, causal=True,
+                                        window=window), tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_window_one_returns_v(cuda_device):
+    rng = np.random.default_rng(3)
+    q, k, v = (_normal(rng, (1, 1, 128, 16), cuda_device, "float32")
+               for _ in range(3))
+    got = fa_kernel.flash_attention(q, k, v, causal=True, window=1)
+    torch.cuda.synchronize()
+    _assert_close(got, v, 1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_non_causal_matches_plain_version(cuda_device):
+    rng = np.random.default_rng(4)
+    q = _normal(rng, (1, 4, 200, 32), cuda_device, "float32")
+    k, v = (_normal(rng, (1, 2, 200, 32), cuda_device, "float32")
+            for _ in range(2))
+    got = fa_kernel.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    _assert_close(got, fa_ref.attention(q, k, v, causal=False), 2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_what_it_does_not_take(cuda_device):
+    q = torch.zeros((1, 4, 64, 64), device=cuda_device)
+    k = torch.zeros((1, 2, 64, 64), device=cuda_device)
+    with pytest.raises(TypeError):
+        fa_kernel.flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention(q.transpose(2, 3), k, k)
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention(q[..., :48].contiguous(),
+                                  k[..., :48].contiguous(),
+                                  k[..., :48].contiguous())
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention(q, torch.zeros((1, 3, 64, 64),
+                                                 device=cuda_device), k)
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention(q, k, k.to(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# wkv6 ------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# the reference's sweep (tests/test_kernels.py), rwkv6-1.6b's head dim
+# and a ragged sequence length that no 32-step chunk divides
+WKV_SHAPES = [(1, 1, 32, 8), (2, 3, 64, 16), (1, 2, 128, 64),
+              (2, 2, 96, 32), (2, 4, 200, 64)]
+
+
+def _wkv_inputs(shape, device, dtype, seed=0):
+    b, h, t, d = shape
+    rng = np.random.default_rng(seed)
+    r = _normal(rng, shape, device, dtype)
+    k = _normal(rng, shape, device, dtype, 0.3)
+    v = _normal(rng, shape, device, dtype)
+    w = torch.from_numpy(rng.uniform(0.7, 0.999, size=shape).astype(
+        np.float32)).to(device=device, dtype=getattr(torch, dtype))
+    u = _normal(rng, (h, d), device, dtype, 0.1)
+    return r, k, v, w, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WKV_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2e-2)])
+def test_wkv6_matches_plain_version(cuda_device, shape, dtype, tol):
+    """bf16: inputs are the same bf16 values on both sides and both sum
+    in f32, so the outputs differ by the rounding of the result to bf16
+    (2**-8 relative) at most: 2e-2 covers it with room."""
+    r, k, v, w, u = _wkv_inputs(shape, cuda_device, dtype)
+    before = wkv_kernel.wkv.launches
+    got = wkv_ops.wkv(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert wkv_kernel.wkv.launches == before + 1
+    assert got.dtype == r.dtype and got.shape == r.shape
+    _assert_close(got, wkv_ref.wkv(r, k, v, w, u), tol)
+
+
+@pytest.mark.cuda
+def test_wkv6_rejects_what_it_does_not_take(cuda_device):
+    r, k, v, w, u = _wkv_inputs((1, 2, 16, 16), cuda_device, "float32")
+    with pytest.raises(TypeError):
+        wkv_kernel.wkv(r.double(), k.double(), v.double(), w.double(),
+                       u.double())
+    with pytest.raises(ValueError):
+        wkv_kernel.wkv(r, k, v, w, u.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        wkv_kernel.wkv(r, k, v, w, u[:1])
+    with pytest.raises(ValueError):
+        wkv_kernel.wkv(r.transpose(2, 3), k, v, w, u)
+    r2, k2, v2, w2, u2 = _wkv_inputs((1, 2, 16, 128), cuda_device,
+                                     "float32")
+    with pytest.raises(ValueError):
+        wkv_kernel.wkv(r2, k2, v2, w2, u2)

@@ -1,0 +1,234 @@
+"""Parity of the port's transformer stack with the reference's, on the
+CPU in float32.
+
+For reduced configs of every family this slice ports — ``llama3.2-3b``
+(GQA, window 64 so that S = 128 exercises it), ``olmo-1b``
+(non-parametric LN, MHA), ``qwen3-32b`` (qk-norm), ``musicgen-medium``
+(embeddings input) and ``rwkv6-1.6b`` (the RWKV6 block) — the reference's
+random params go through ``transformer_params_from_jax`` and both
+packages run the same numpy inputs: ``forward`` / ``logits_fn`` over a
+sequence, and ``serve_step`` token by token with its caches.  The
+reference is called directly, without a mesh.
+
+Tolerance 1e-4 (abs and rel) on hidden states and logits of magnitude
+~1-4: the two packages sum the same f32 products in other orders (matmul
+blocking, softmax and norm reductions), which moves the last bits of
+each layer's output; two layers and a head keep that under 1e-5, and
+1e-4 leaves a decade of room.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import transformer as JT
+from repro_torch.configs import REGISTRY, get_config
+from repro_torch.convert import (transformer_params_from_jax,
+                                 transformer_params_to_numpy)
+from repro_torch.models import transformer as T
+
+CONFIGS = ["llama3.2-3b", "olmo-1b", "qwen3-32b", "musicgen-medium",
+           "rwkv6-1.6b"]
+TOL = 1e-4
+SEQ = 128
+
+
+def _cfgs(name):
+    return jax_get_config(name).reduced(), get_config(name).reduced()
+
+
+def _jax_init(jcfg, seed):
+    """The reference's params, built under ``jit``: called eagerly, its
+    ``vmap`` over the blocks leaves JAX (0.9) retracing every later eager
+    ``jnp.ones``, which later tests in the same process count as
+    recompiles."""
+    return jax.jit(JT.init_params, static_argnums=0)(
+        jcfg, jax.random.PRNGKey(seed))
+
+
+def _jax_params(jcfg, seed=0):
+    tree = _jax_init(jcfg, seed)
+    return tree, jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _inputs(cfg, b, s, seed=0):
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "tokens":
+        return rng.integers(0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+    return rng.normal(size=(b, s, cfg.d_model)).astype(np.float32)
+
+
+def _torch_inputs(x):
+    t = torch.from_numpy(x)
+    return t.long() if t.dtype == torch.int32 else t
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_init_params_tree_matches_reference(name):
+    jcfg, cfg = _cfgs(name)
+    want = jax.eval_shape(lambda: JT.init_params(jcfg,
+                                                 jax.random.PRNGKey(0)))
+    got = T.init_params(cfg, seed=0, device="cpu")
+    nb = T.n_blocks(cfg)
+    assert len(got["blocks"]) == nb
+
+    def check(w, g, path):
+        if isinstance(w, dict):
+            assert isinstance(g, dict) and set(w) == set(g), path
+            for key in w:
+                check(w[key], g[key], f"{path}/{key}")
+            return
+        shape = w.shape[1:] if path.startswith("blocks") else w.shape
+        assert tuple(g.shape) == tuple(shape), path
+        assert str(g.dtype).split(".")[-1] == str(w.dtype), path
+
+    for block in got["blocks"]:
+        check(want["blocks"], block, "blocks")
+    check({k: v for k, v in want.items() if k != "blocks"},
+          {k: v for k, v in got.items() if k != "blocks"}, "")
+    # the 1/sqrt(fan_in) scale of the reference's _init
+    wq = got["embed"]["w"] if "embed" in got else got["in_proj"]["w"]
+    assert abs(float(wq.std()) * np.sqrt(cfg.d_model) - 1.0) < 0.05
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_forward_and_logits_match_reference(name):
+    jcfg, cfg = _cfgs(name)
+    jtree, tree = _jax_params(jcfg)
+    params = transformer_params_from_jax(cfg, tree, device="cpu")
+    x = _inputs(cfg, 2, SEQ)
+    want_h, _ = JT.forward(jtree, jcfg, jnp.asarray(x))
+    want_logits, _ = JT.logits_fn(jtree, jcfg, jnp.asarray(x))
+    with torch.no_grad():
+        got_h, aux = T.forward(params, cfg, _torch_inputs(x))
+        got_logits, _ = T.logits_fn(params, cfg, _torch_inputs(x))
+    assert float(aux) == 0.0
+    assert got_logits.shape == (2, SEQ, cfg.padded_vocab)
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(got_logits.numpy(), np.asarray(want_logits),
+                               rtol=TOL, atol=TOL)
+
+
+def _jax_cache_leaf(jcache, i, sub, key):
+    return np.asarray(jcache[sub][key][i])
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_serve_steps_match_reference(name):
+    """Eight decode steps: logits and every cache tensor agree with the
+    reference's ``serve_step`` called directly."""
+    jcfg, cfg = _cfgs(name)
+    jtree, tree = _jax_params(jcfg, seed=1)
+    params = transformer_params_from_jax(cfg, tree, device="cpu")
+    x = _inputs(cfg, 2, 8, seed=1)
+    jcache = JT.init_cache(jcfg, 2, 16)
+    cache = T.init_cache(cfg, 2, 16, device="cpu")
+    for pos in range(8):
+        want, jcache = JT.serve_step(jtree, jcfg, jcache,
+                                     jnp.asarray(x[:, pos:pos + 1]), pos)
+        with torch.no_grad():
+            got, cache = T.serve_step(params, cfg, cache,
+                                      _torch_inputs(x[:, pos:pos + 1]), pos)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                                   atol=TOL)
+    for i, block in enumerate(cache):
+        for sub, entries in block.items():
+            for key, t in entries.items():
+                np.testing.assert_allclose(
+                    t.float().numpy(), _jax_cache_leaf(jcache, i, sub, key),
+                    rtol=TOL, atol=TOL, err_msg=f"{i}/{sub}/{key}")
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_decode_matches_prefill(name):
+    """Token-by-token decode over 80 positions gives the prefill's
+    logits at every position (llama's window of 64 wraps the ring)."""
+    cfg = get_config(name).reduced()
+    params = T.init_params(cfg, seed=2, device="cpu")
+    x = _torch_inputs(_inputs(cfg, 2, 80, seed=2))
+    with torch.no_grad():
+        full, _ = T.logits_fn(params, cfg, x)
+        cache = T.init_cache(cfg, 2, 80, device="cpu")
+        for pos in range(80):
+            got, cache = T.serve_step(params, cfg, cache,
+                                      x[:, pos:pos + 1], pos)
+            np.testing.assert_allclose(got.numpy(), full[:, pos].numpy(),
+                                       rtol=TOL, atol=TOL)
+
+
+def test_sliding_window_cache_is_bounded():
+    cfg = get_config("llama3.2-3b").reduced()
+    assert cfg.sliding_window == 64
+    cache = T.init_cache(cfg, 1, 1000, device="cpu")
+    assert cache[0]["sub0"]["k"].shape == (1, cfg.n_kv_heads, 64,
+                                           cfg.head_dim)
+    params = T.init_params(cfg, seed=3, device="cpu")
+    with torch.no_grad():
+        for pos in range(70):
+            _, cache = T.serve_step(params, cfg, cache,
+                                    torch.tensor([[pos % 7]]), pos)
+    assert cache[0]["sub0"]["k"].shape[2] == 64
+    assert T.init_cache(get_config("rwkv6-1.6b").reduced(), 1, 1000,
+                        device="cpu")[0]["sub0"]["wkv"].shape == (
+                            1, 4, 64, 64)
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b",
+                                  "jamba-1.5-large-398b"])
+def test_later_blocks_raise_not_implemented(name):
+    cfg = get_config(name).reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.init_params(cfg, device="meta")
+    if cfg.attention == "mla" or cfg.attn_every:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            T.init_cache(cfg, 1, 8, device="cpu")
+
+
+def _supported():
+    out = []
+    for name, cfg in REGISTRY.items():
+        subs = T.block_template(cfg.reduced())
+        if all(s.mixer in ("gqa", "rwkv6") and s.ffn != "moe"
+               for s in subs):
+            out.append(name)
+    return out
+
+
+@pytest.mark.parametrize("name", _supported())
+def test_converter_round_trip(name):
+    jcfg, cfg = _cfgs(name)
+    _, tree = _jax_params(jcfg, seed=4)
+    back = transformer_params_to_numpy(
+        cfg, transformer_params_from_jax(cfg, tree, device="cpu"))
+    flat_want = jax.tree_util.tree_leaves_with_path(tree)
+    flat_got = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_got) == len(flat_want)
+    for path, leaf in flat_want:
+        np.testing.assert_array_equal(flat_got[path], leaf,
+                                      err_msg=jax.tree_util.keystr(path))
+
+
+def test_converter_keeps_bf16_and_checks_shapes():
+    jcfg, cfg = _cfgs("llama3.2-3b")
+    import dataclasses
+    jcfg = dataclasses.replace(jcfg, param_dtype="bfloat16")
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    _, tree = _jax_params(jcfg, seed=5)
+    params = transformer_params_from_jax(cfg, tree, device="cpu")
+    wq = params["blocks"][1]["sub0"]["mixer"]["wq"]
+    assert wq.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        wq.float().numpy(),
+        tree["blocks"]["sub0"]["mixer"]["wq"][1].astype(np.float32))
+    back = transformer_params_to_numpy(cfg, params)
+    np.testing.assert_array_equal(
+        back["embed"]["w"], tree["embed"]["w"].astype(np.float32))
+    tree["blocks"]["sub0"]["mixer"]["wq"] = tree["blocks"]["sub0"][
+        "mixer"]["wq"][:, :-1]
+    with pytest.raises(ValueError, match="wq"):
+        transformer_params_from_jax(cfg, tree, device="cpu")
