@@ -9,7 +9,9 @@ Phases, each printed as one JSON object on its own line:
 
 1. ``card``: the card's name and power limit (nvidia-smi), the CUDA
    version, and the build of every hand-written kernel from the sources
-   in this checkout (one nvcc per source, all started together).
+   in this checkout (one nvcc per source, all started together), with
+   each kernel's registers and spills from ptxas; the tensor-core
+   attention kernel must not spill.
 2. ``main_path``: the port's FL round loop at the paper's default setup
    (``run_fl(FLConfig(n_rounds=3))``: MNIST CNN, 50 devices, 5 air
    nodes, H=5, batched on the card), with every kernel's launch count
@@ -50,7 +52,8 @@ Phases, each printed as one JSON object on its own line:
     bf16 and in f32) and over the reference's sweep, f32 and bf16, timed
     as in phase 4 beside the
     library call (``scaled_dot_product_attention``; none for wkv) and
-    ``bound_ms``.
+    ``bound_ms``; for flash also the achieved TFLOP/s and the share of
+    the bound.
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after.  Then a ``{"kernels": [...]}`` line and,
@@ -62,6 +65,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -81,10 +85,12 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 TOLERANCE = {"float32": 1e-6, "bfloat16": 2e-2}
 # f32: the reference's tolerances (tests/test_kernels.py).  bf16: kernel
 # and plain version both sum in f32 from the same bf16 inputs and round
-# the output once, so they differ by about one bf16 rounding (2**-8
-# relative); the limit leaves room over that and stays well below the
-# outputs' own size (a causal row over n random keys is ~sqrt(e/n),
-# 0.036 at n = 2048, so the reference's 5e-2 would pass a wrong kernel)
+# the output once; the tensor-core flash kernel also rounds the
+# probabilities to bf16 before P.V, so they differ by about two bf16
+# roundings (2**-8 relative each); the limit leaves room over that and
+# stays well below the outputs' own size (a causal row over n random keys
+# is ~sqrt(e/n), 0.036 at n = 2048, so the reference's 5e-2 would pass a
+# wrong kernel)
 FLASH_TOLERANCE = {"float32": 2e-5, "bfloat16": 1e-2}
 WKV_TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -165,16 +171,49 @@ def phase_card(kernels):
     for k in kernels:
         k.build()
     build_s = time.perf_counter() - t0
+    reports = [ptxas_report((lib.parent / "build.log").read_text())
+               for lib in libs]
     emit({"phase": "card", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernel_build_s": build_s,
-          "ptxas": {str(lib.relative_to(ROOT)):
-                    [ln for ln in (lib.parent / "build.log").read_text()
-                     .splitlines() if "registers" in ln or "spill" in ln]
-                    for lib in libs},
+          "ptxas": {str(lib.relative_to(ROOT)): ptxas
+                    for lib, ptxas in zip(libs, reports)},
           "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                    "cudnn": torch.backends.cudnn.allow_tf32}})
+    spilled = [name for ptxas in reports for name, rec in ptxas.items()
+               if "wgmma" in name and name != "notes"
+               and (rec["spill_stores"] or rec["spill_loads"])]
+    if spilled:
+        raise RuntimeError(f"the tensor-core kernel spills registers: "
+                           f"{spilled}")
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spills of each kernel in nvcc's ``-Xptxas -v``
+    report (``build.log``), by mangled kernel name; ptxas's performance
+    notes (wgmma serialized, setmaxnreg ignored) under ``notes``."""
+    out, name = {"notes": []}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if "Performance Loss" in ln or "setmaxnreg" in ln:
+            out["notes"].append(ln.strip()[:300])
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def phase_main_path(launchers):
@@ -743,16 +782,20 @@ def _flash_case(fa_kernel, fa_ref, q_shape, hkv, window, dtype_name, seed):
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
     ops = 4 * d * pairs * b * hq
     big = nbytes > 50e6
+    times = _times({"kernel": lambda: fa_kernel.flash_attention(
+                        q, k, v, causal=True, window=window),
+                    "plain": lambda: fa_ref.attention(q, k, v, causal=True,
+                                                      window=window),
+                    "library": library}, big)
+    bound = _bound(nbytes, ops, dtype_name)
     return {
         "q_shape": list(q_shape), "kv_heads": hkv, "window": window,
         "dtype": dtype_name, "max_abs_err": float(diff.max()),
         "tolerance": tol, "ok": ok, "library_max_abs_err": lib_err,
-        **_times({"kernel": lambda: fa_kernel.flash_attention(
-                      q, k, v, causal=True, window=window),
-                  "plain": lambda: fa_ref.attention(q, k, v, causal=True,
-                                                    window=window),
-                  "library": library}, big),
-        **_bound(nbytes, ops, dtype_name),
+        **times, **bound,
+        # achieved rate and the share of the bound the kernel reaches
+        "kernel_tflops": ops / times["kernel_ms"] / 1e9,
+        "bound_share": bound["bound_ms"] / times["kernel_ms"],
     }
 
 
@@ -916,7 +959,7 @@ def main() -> int:
                      "src/repro/kernels/fedavg_agg/kernel.py:27", launches,
                      summary),
         _kernel_line("flash_attention", "src/repro_torch/kernels/"
-                     "flash_attention/csrc/flash_attention.cu",
+                     "flash_attention/csrc/flash_attention_wgmma.cuh",
                      "src/repro/kernels/flash_attention/kernel.py:76",
                      fa_launches, fa_case),
         _kernel_line("wkv6", "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",

@@ -4,8 +4,9 @@ Each kernel is one ``.cu`` file with a plain C entry point, compiled by
 ``nvcc`` for Hopper (``sm_90a``) into
 ``build/repro_torch_kernels/<source-hash>/`` at the root of the checkout
 the first time it is needed, then loaded with ``ctypes``.  The hash
-covers the source and the flags, so an edited kernel is rebuilt and an
-unchanged one is reused.  A failed build raises with nvcc's output.
+covers every file in the source's directory (the ``.cu`` and the headers
+it includes) and the flags, so an edited kernel or header is rebuilt and
+an unchanged one is reused.  A failed build raises with nvcc's output.
 """
 from __future__ import annotations
 
@@ -40,10 +41,15 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    """Where ``source`` builds to: keyed on its bytes and the flags."""
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_ROOT / digest[:16] / f"lib{source.stem}.so"
+    """Where ``source`` builds to: keyed on the name and bytes of every
+    file in its directory, the source's name and the flags."""
+    digest = hashlib.sha256(f"{source.name}\0{' '.join(NVCC_FLAGS)}\0"
+                            .encode())
+    for path in sorted(source.parent.iterdir()):
+        if path.is_file():
+            digest.update(f"{path.name}\0{path.stat().st_size}\0".encode())
+            digest.update(path.read_bytes())
+    return BUILD_ROOT / digest.hexdigest()[:16] / f"lib{source.stem}.so"
 
 
 def compile_library(source: Path) -> Path:

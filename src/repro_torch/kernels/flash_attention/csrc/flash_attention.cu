@@ -11,32 +11,34 @@
 // `_flash_kernel`).  That kernel walks the KV blocks on the innermost,
 // sequential grid axis and keeps the running max m, sum l and the f32
 // accumulator in VMEM scratch between grid steps.  Here no state crosses
-// blocks: one block of 256 threads owns one (b, q-head, 64-row query
-// tile) and loops over the 64-key KV tiles itself, with m, l and the
-// accumulator in registers.  The KV head is read in place
-// (h / (Hq / Hkv)), never replicated in memory.
+// blocks: a block owns a query tile of one (b, q-head) and loops over the
+// KV tiles itself, with m, l and the accumulator in registers.  The KV
+// head is read in place (h / (Hq / Hkv)), never replicated in memory.
 //
-// Bound: at the main path's shape (llama3.2-3b prefill, B = 4, S = 2048,
-// 24 q-heads of D = 128) the causal work is about 1e11 FLOP against
-// 134 MB of q, k, v and out, so the function is bound by operations
-// (~0.1 ms at the card's 989 TFLOP/s bf16 rate), not by memory.  This
-// first version does its arithmetic with f32 FMAs on the CUDA cores, not
-// on the tensor cores: f32 inputs must match the reference to 2e-5,
-// which TF32 would not, and one simple code path serves both types.  It
-// is therefore bound by the f32 FMA rate and by shared-memory loads
-// (two FMAs per load in the inner loops), far above the bf16 bound;
-// mma/wgmma on bf16 tiles is later work.  What the design does about the
-// rest: q, k and v tiles are read from device memory once per block in
-// 16-byte loads and converted to f32 as they are staged in shared
-// memory, rows padded to an odd word stride so that the inner loops are
-// free of bank conflicts; at D >= 64 a tile's probabilities reuse K's
-// buffer once the scores are computed, so that at D = 128 a block takes
-// 99 KB of shared memory and two fit on an SM; KV tiles that the causal
-// or window mask empties entirely are skipped (half the work of a causal
-// prefill); the query tiles with the most keys are scheduled first.
-#include <cuda_bf16.h>
+// Two kernels, chosen by the input type alone (the C entry point below):
+//
+// - bfloat16, every head dim: flash_attention_wgmma.cuh, on the tensor
+//   cores (wgmma, TMA, warp-specialised); its note gives the design.
+// - float32: the kernel in this file, f32 FMAs on the CUDA cores.  f32
+//   inputs must match the reference to 2e-5, which TF32 on the tensor
+//   cores would not.  At the main path's shape (llama3.2-3b prefill,
+//   B = 4, S = 2048, 24 q-heads of D = 128) the f32 work is bound by the
+//   f32 FMA rate (67 TFLOP/s: ~1.5 ms); this kernel is further bound by
+//   shared-memory loads (two FMAs per load in the inner loops).  What the
+//   design does about the rest: one block of 256 threads owns a 64-row
+//   query tile; q, k and v tiles are read from device memory once per
+//   block in 16-byte loads and staged in shared memory, rows padded to an
+//   odd word stride so that the inner loops are free of bank conflicts;
+//   at D >= 64 a tile's probabilities reuse K's buffer once the scores
+//   are computed, so that at D = 128 a block takes 99 KB of shared memory
+//   and two fit on an SM; K/V rows past S are staged as zeros; KV tiles
+//   that the causal or window mask empties entirely are skipped (half the
+//   work of a causal prefill); the query tiles with the most keys are
+//   scheduled first.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_attention_wgmma.cuh"
 
 namespace {
 
@@ -46,51 +48,24 @@ constexpr int kThreads = 256;  // 16 x 16: 4 query rows x (4 keys | D/16 dims)
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void store(float v, float* dst) { *dst = v; }
-__device__ __forceinline__ void store(float v, __nv_bfloat16* dst) {
-  *dst = __float2bfloat16(v);
-}
-
-// 16 bytes of T as f32: 4 floats or 8 bf16.
-__device__ __forceinline__ int load16(const float* src, float* v) {
-  const float4 q = *reinterpret_cast<const float4*>(src);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  return 4;
-}
-__device__ __forceinline__ int load16(const __nv_bfloat16* src, float* v) {
-  const uint4 q = *reinterpret_cast<const uint4*>(src);
-  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-  return 8;
-}
-
 // Rows [r0, r0 + 64) of a (S, D) matrix into dst (64 x (D + 1) f32),
 // zero beyond S.  Every thread moves 16-byte vectors; consecutive
 // threads take consecutive vectors of the (contiguous) tile.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int S) {
-  constexpr int kVec = 16 / sizeof(T);
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int r0, int S) {
   constexpr int kLd = D + 1;
-  constexpr int kVecs = kBQ * D / kVec;
+  constexpr int kVecs = kBQ * D / 4;
   for (int i = threadIdx.x; i < kVecs; i += kThreads) {
-    const int e = i * kVec;
+    const int e = i * 4;
     const int row = e / D, col = e % D;
-    float v[8];
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + row < S) {
-      load16(src + static_cast<int64_t>(r0 + row) * D + col, v);
-    } else {
-#pragma unroll
-      for (int x = 0; x < kVec; ++x) v[x] = 0.f;
+      v = *reinterpret_cast<const float4*>(
+          src + static_cast<int64_t>(r0 + row) * D + col);
     }
-#pragma unroll
-    for (int x = 0; x < kVec; ++x) dst[row * kLd + col + x] = v[x];
+    float* d = dst + row * kLd + col;
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
   }
 }
 
@@ -101,10 +76,12 @@ __host__ __device__ constexpr bool p_in_k() {
   return kBK + 1 <= D + 1;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Hq,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       int Hq,
                        int Hkv, int S, int causal, int window,
                        float scale_log2) {
   constexpr int kLd = D + 1;       // odd word stride: no bank conflicts
@@ -126,7 +103,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t kv_base = (static_cast<int64_t>(b) * Hkv + g) * S * D;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
-  load_tile<T, D>(qs, q + q_base, q0, S);
+  load_tile<D>(qs, q + q_base, q0, S);
 
   float acc[4][kNJ];
   float m[4], l[4];
@@ -144,8 +121,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = k_lo / kBK; t * kBK < k_hi; ++t) {
     const int c0 = t * kBK;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(ks, k + kv_base, c0, S);
-    load_tile<T, D>(vs, v + kv_base, c0, S);
+    load_tile<D>(ks, k + kv_base, c0, S);
+    load_tile<D>(vs, v + kv_base, c0, S);
     __syncthreads();
 
     float s[4][4];
@@ -223,13 +200,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= S) continue;
     const float safe = l[i] == 0.f ? 1.f : l[i];
-    T* dst = out + q_base + static_cast<int64_t>(row) * D;
+    float* dst = out + q_base + static_cast<int64_t>(row) * D;
 #pragma unroll
-    for (int j = 0; j < kNJ; ++j) store(acc[i][j] / safe, dst + tx + 16 * j);
+    for (int j = 0; j < kNJ; ++j) dst[tx + 16 * j] = acc[i][j] / safe;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Hq, int Hkv, int S, int causal, int window,
            cudaStream_t stream) {
@@ -238,66 +215,62 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       sizeof(float) * (static_cast<size_t>(kBQ + 2 * kBK) * kLd +
                        (p_in_k<D>() ? 0 : static_cast<size_t>(kBQ) *
                                               (kBK + 1)));
-  auto* fn = flash_attention_kernel<T, D>;
-  // above 48 KB only after opting in, which holds for the current device;
-  // made once per instantiation and device, so that a later call may be
-  // captured into a CUDA graph
-  constexpr int kMaxDevices = 64;
-  static bool smem_set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err =
+      fa_wgmma::opt_in_smem<flash_attention_kernel<D>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices || !smem_set[dev]) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < kMaxDevices) smem_set[dev] = true;
-  }
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
   const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
-  fn<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, S, causal,
-      window, scale_log2);
+  flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, S,
+      causal, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* out,
-               int B, int Hq, int Hkv, int S, int D, int causal, int window,
-               cudaStream_t s) {
+int dispatch_f32(const void* q, const void* k, const void* v, void* out,
+                 int B, int Hq, int Hkv, int S, int D, int causal,
+                 int window, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
-    case 32: return launch<T, 32>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
+    case 16: return launch<16>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
+    case 32: return launch<32>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
+    case 64: return launch<64>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
+    case 128: return launch<128>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// launches that succeeded, by kernel: 0 = CUDA cores (f32), 1 = tensor
+// cores (bf16)
+unsigned long long g_launches[2] = {0, 0};
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; window <= 0 means no window.
-// Returns cudaGetLastError() after the launch (0 on success); refuses
-// shapes the kernel does not take with cudaErrorInvalidValue, before
-// launching anything.
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the
+// tensor-core kernel); window <= 0 means no window.  Returns
+// cudaGetLastError() after the launch (0 on success); refuses shapes the
+// kernels do not take with cudaErrorInvalidValue, before launching
+// anything.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B,
                                       int Hq, int Hkv, int S, int D,
                                       int causal, int window, int dtype,
                                       void* stream) {
   if (B < 1 || B > 65535 || Hq < 1 || Hq > 65535 || Hkv < 1 ||
-      Hq % Hkv != 0 || S < 1) {
+      Hq % Hkv != 0 || S < 1 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return dispatch_d<float>(q, k, v, out, B, Hq, Hkv, S, D, causal,
+  const int rc =
+      dtype == 0
+          ? dispatch_f32(q, k, v, out, B, Hq, Hkv, S, D, causal, window, s)
+          : fa_wgmma::dispatch(q, k, v, out, B, Hq, Hkv, S, D, causal,
                                window, s);
-    case 1:
-      return dispatch_d<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, S, D,
-                                       causal, window, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (rc == 0) ++g_launches[dtype];
+  return rc;
+}
+
+// How many launches of kernel `variant` (0 = CUDA cores, 1 = tensor
+// cores) have succeeded in this process.
+extern "C" unsigned long long flash_attention_variant_launches(int variant) {
+  return variant == 0 || variant == 1 ? g_launches[variant] : 0;
 }

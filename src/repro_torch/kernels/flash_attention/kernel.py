@@ -4,10 +4,13 @@
 The counterpart of the reference's Pallas kernel
 (``repro/kernels/flash_attention/kernel.py``): causal / sliding-window
 GQA attention with an f32 online softmax, output in q's type (f32 or
-bf16), for any sequence length.  The wrapper checks what the kernel
-takes and raises on anything else, allocates the output, launches on
-the current stream and never synchronizes.  ``flash_attention.launches``
-counts launches.
+bf16), for any sequence length.  The C entry point picks the kernel by
+type alone: bfloat16 runs on the tensor cores
+(``csrc/flash_attention_wgmma.cuh``), float32 on the CUDA cores.  The
+wrapper checks what the kernels take and raises on anything else,
+allocates the output, launches on the current stream and never
+synchronizes.  ``flash_attention.launches`` counts launches;
+:func:`variant_launches` reads the C entry point's count by kernel.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from ..build import load_library
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the C entry point's kernels, by its variant number
+VARIANTS = ("cuda_cores", "tensor_cores")
 
 
 @functools.lru_cache(maxsize=None)
@@ -33,6 +38,22 @@ def build():
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _variant_counter():
+    fn = load_library(SOURCE).flash_attention_variant_launches
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_ulonglong
+    return fn
+
+
+def variant_launches() -> dict:
+    """Launches that succeeded in this process, by kernel, as the C entry
+    point counts them: ``cuda_cores`` (float32) and ``tensor_cores``
+    (bfloat16).  Builds the library at first use."""
+    fn = _variant_counter()
+    return {name: int(fn(i)) for i, name in enumerate(VARIANTS)}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -5,8 +5,13 @@ interpret mode and its jnp oracle, and through the port's plain versions
 (``ref.attention``, ``ref.blocked_attention``) and its dispatcher on the
 CPU, over the reference's sweep and tolerances (``tests/test_kernels.py``:
 f32 2e-5, bf16 5e-2).  The CUDA kernel itself runs only on a card: its
-tests are in ``test_torch_kernels_cuda.py``.
+tests are in ``test_torch_kernels_cuda.py``.  What this file can say of
+the card's bf16 kernel is its arithmetic: ``_tensor_core_emulation``
+repeats it in plain torch and is held to the tolerance the card's tests
+use.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -123,3 +128,64 @@ def test_kernel_wrapper_rejects_cpu_tensor():
     q, k, v = _torch(_inputs(1, 2, 1, 64, 16), "float32")
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel.flash_attention(q, k, v)
+
+
+def _tensor_core_emulation(q, k, v, causal=True, window=None, block=128):
+    """The bf16 tensor-core kernel's arithmetic in plain torch: bf16
+    inputs, f32 scores, an online softmax over tiles of ``block`` keys
+    whose probabilities are rounded to bf16 before P.V, f32 accumulation
+    and row sums of the unrounded probabilities, one bf16 rounding of
+    the output."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    scale_log2 = math.log2(math.e) / math.sqrt(d)
+    rows = torch.arange(s)[:, None]
+    m = torch.full((b, hq, s, 1), -1e30)
+    l = torch.zeros((b, hq, s, 1))
+    acc = torch.zeros((b, hq, s, d))
+    for c0 in range(0, s, block):
+        cols = torch.arange(c0, min(c0 + block, s))[None, :]
+        ok = torch.ones(s, cols.shape[1], dtype=torch.bool)
+        if causal:
+            ok &= cols <= rows
+        if window is not None:
+            ok &= cols > rows - window
+        x = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, c0:c0 + block])
+        x = (x * scale_log2).masked_fill(~ok, -1e30)
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        p = torch.exp2(x - m_new).masked_fill(~ok, 0.0)
+        alpha = torch.exp2(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(),
+            vf[:, :, c0:c0 + block])
+        m = m_new
+    return (acc / torch.where(l == 0, torch.ones_like(l), l)).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (1, 2, 1, 2048, 128, True, None),   # llama3.2-3b's head dim and length
+    (1, 2, 1, 200, 64, True, None),     # ragged: no 128-key tile divides S
+    (1, 2, 2, 200, 64, True, 64),
+    (1, 2, 1, 129, 128, False, None),
+])
+def test_tensor_core_arithmetic_holds_card_tolerance(b, hq, hkv, s, d,
+                                                     causal, window):
+    """The bf16 kernel rounds P to bf16 before P.V where the reference
+    keeps it in f32: its arithmetic, emulated here, stays within the
+    card's bf16 tolerance 1e-2 x (1 + |out|) of the port's plain version
+    and of the reference's oracle on the same bf16 inputs."""
+    arrays = _inputs(b, hq, hkv, s, d, seed=5)
+    tq, tk, tv = _torch(arrays, "bfloat16")
+    got = _np(_tensor_core_emulation(tq, tk, tv, causal=causal,
+                                     window=window))
+    q, k, v = _jax(arrays, "bfloat16")
+    for want in (_np(ref.attention(tq, tk, tv, causal=causal,
+                                   window=window)),
+                 _np(jax_ref.attention(q, k, v, causal=causal,
+                                       window=window))):
+        assert np.all(np.abs(got - want) <= 1e-2 * (1 + np.abs(want)))

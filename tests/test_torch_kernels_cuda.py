@@ -94,9 +94,11 @@ FLASH_SHAPES = [(1, 2, 2, 128, 32), (2, 4, 2, 256, 64), (1, 8, 1, 128, 64),
                 (2, 4, 4, 512, 16), (1, 6, 2, 256, 128),
                 (1, 4, 2, 2048, 128), (2, 4, 2, 200, 64)]
 # bf16: kernel and plain version both sum in f32 from the same bf16
-# inputs and round the output once, so they differ by about one bf16
-# rounding (2**-8 relative); 1e-2 covers it with room and is well below
-# the outputs' own size (|out| ~ 0.03 and up for these random inputs)
+# inputs and round the output once; the kernel (on the tensor cores) also
+# rounds the probabilities to bf16 before P.V, as FA2/FA3 do.  They differ
+# by about two bf16 roundings (2**-8 relative each); 1e-2 covers it with
+# room and is well below the outputs' own size (|out| ~ 0.03 and up for
+# these random inputs)
 FLASH_TOLERANCE = [("float32", 2e-5), ("bfloat16", 1e-2)]
 
 
@@ -128,6 +130,66 @@ def test_flash_attention_matches_plain_version(cuda_device, b, hq, hkv, s,
     assert got.dtype == q.dtype and got.shape == q.shape
     _assert_close(got, fa_ref.attention(q, k, v, causal=True,
                                         window=window), tol)
+
+
+def _flash_bf16_case(device, b, hq, hkv, s, d, causal, window, seed=0):
+    """One bf16 call of the tensor-core kernel against the plain version
+    at 1e-2 x (1 + |out|); the C entry point must count it as a
+    tensor-core launch."""
+    rng = np.random.default_rng(seed)
+    q = _normal(rng, (b, hq, s, d), device, "bfloat16")
+    k = _normal(rng, (b, hkv, s, d), device, "bfloat16")
+    v = _normal(rng, (b, hkv, s, d), device, "bfloat16")
+    before = fa_kernel.variant_launches()
+    got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    after = fa_kernel.variant_launches()
+    assert after["tensor_cores"] == before["tensor_cores"] + 1
+    assert after["cuda_cores"] == before["cuda_cores"]
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _assert_close(got, fa_ref.attention(q, k, v, causal=causal,
+                                        window=window), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 63, 65, 129, 200])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_bf16_ragged_sequence(cuda_device, s, d):
+    """S that no 128-row tile divides: TMA zero-fills the rows past S."""
+    _flash_bf16_case(cuda_device, 2, 4, 2, s, d, True, None, seed=s + d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 1, 64, 100])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bf16_window(cuda_device, window, d):
+    _flash_bf16_case(cuda_device, 1, 4, 2, 300, d, True, window, seed=d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("window", [None, 50])
+def test_flash_attention_bf16_non_causal(cuda_device, d, window):
+    _flash_bf16_case(cuda_device, 1, 4, 2, 200, d, False, window, seed=d)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_llama_gqa(cuda_device):
+    """llama3.2-3b's 24 q-heads over 8 kv heads at its prefill length."""
+    _flash_bf16_case(cuda_device, 1, 24, 8, 2048, 128, True, None, seed=7)
+
+
+@pytest.mark.cuda
+def test_flash_attention_float32_stays_on_cuda_cores(cuda_device):
+    rng = np.random.default_rng(8)
+    q, k, v = (_normal(rng, (1, 2, 96, 64), cuda_device, "float32")
+               for _ in range(3))
+    before = fa_kernel.variant_launches()
+    fa_kernel.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    after = fa_kernel.variant_launches()
+    assert after["cuda_cores"] == before["cuda_cores"] + 1
+    assert after["tensor_cores"] == before["tensor_cores"]
 
 
 @pytest.mark.cuda
