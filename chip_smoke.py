@@ -15,13 +15,16 @@ Phases, each printed as one JSON object on its own line:
 2. ``main_path``: the port's FL round loop at the paper's default setup
    (``run_fl(FLConfig(n_rounds=3))``: MNIST CNN, 50 devices, 5 air
    nodes, H=5, batched on the card), with every kernel's launch count
-   set to 0 just before and read just after.
+   set to 0 just before and read just after: one ``fedavg_agg`` launch a
+   round, every leaf of both size buckets.
 3. ``round_profile``: one steady round of that setup under
    ``torch.profiler``: the card's busy share and kernel time by name.
-4. ``kernel``: each kernel against its plain PyTorch version on the
-   card, at the shapes the main path gave it (and at VGG-11's size), in
+4. ``kernel``: the round aggregate as the main path issues it (every
+   MNIST leaf over its two buckets, one launch), against its plain
+   PyTorch version and beside one ``tensordot`` a leaf on the
+   concatenated stack; then each leaf alone and VGG-11's flat buffer;
    float32 and bfloat16, with the error, the tolerance and CUDA-event
-   times of the kernel, the plain version and one library call (on the
+   times of the kernel, the plain version and the library call (on the
    card alone, from a replayed CUDA graph, and issued eagerly from
    Python), beside the least time the card could take (``bound_ms``).
 5. ``card_vs_cpu``: two batched rounds of the same setup from the same
@@ -46,14 +49,16 @@ Phases, each printed as one JSON object on its own line:
    the same way over 64 positions (prefill through ``wkv6``, decode
    through the plain ``wkv_step``).
 10. ``rwkv6``: full-width ``rwkv6-1.6b`` in bf16, prefill of B = 4 x 2048
-    tokens (one ``wkv6`` launch per layer, 24) and decode steps.
+    tokens (one ``wkv6`` launch per layer, 24) and decode steps; the
+    smallest decay ``w`` the prefill feeds the kernel, and each layer's
+    0.1 % quantile of it.
 11. ``flash_kernel`` / ``wkv_kernel``: each kernel against its plain
     version on the card at the shapes the main paths gave it (in their
-    bf16 and in f32) and over the reference's sweep, f32 and bf16, timed
-    as in phase 4 beside the
-    library call (``scaled_dot_product_attention``; none for wkv) and
-    ``bound_ms``; for flash also the achieved TFLOP/s and the share of
-    the bound.
+    bf16 and in f32) and over the reference's sweep, f32 and bf16, with
+    decays from [0.7, 0.999] and (wkv) also from [0, 0.999] with exact
+    zeros, timed as in phase 4 beside the library call
+    (``scaled_dot_product_attention``; none for wkv) and ``bound_ms``;
+    for flash also the achieved TFLOP/s and the share of the bound.
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after.  Then a ``{"kernels": [...]}`` line and,
@@ -92,6 +97,11 @@ TOLERANCE = {"float32": 1e-6, "bfloat16": 2e-2}
 # is ~sqrt(e/n), 0.036 at n = 2048, so the reference's 5e-2 would pass a
 # wrong kernel)
 FLASH_TOLERANCE = {"float32": 2e-5, "bfloat16": 1e-2}
+# wkv bf16: the tensor-core kernel multiplies the factored operands (r and
+# k times their decays, the intra-chunk scores, the state) as bf16 high
+# and low parts, ~2**-17 of each; one bf16 rounding of them instead would
+# put ~2**-9 of the state's size (not the output's) on every output and
+# miss the limit where outputs are small
 WKV_TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
@@ -239,7 +249,11 @@ def phase_main_path(launchers):
                for r in range(cfg.n_rounds)]
     buckets = sorted({s.name for s in tracer.spans
                       if s.kind == "bucket_dispatch"})
-    ok = (launches >= 8 * cfg.n_rounds
+    split = [s.attrs["clients"] for s in tracer.spans
+             if s.kind == "bucket_dispatch" and s.round == 0]
+    # batched: one launch a round for every leaf of every bucket
+    ok = (cfg.resolved_execution() == "batched"
+          and launches == cfg.n_rounds
           and all(math.isfinite(a) for a in res.accuracies)
           and all(res.participated))
     emit({"phase": "main_path", "ok": ok, "config": "FLConfig(n_rounds=3)",
@@ -247,12 +261,12 @@ def phase_main_path(launchers):
           "round_wall_s": per_round, "accuracies": res.accuracies,
           "losses": res.losses, "latencies": res.latencies,
           "cases": res.cases, "buckets": buckets,
-          "clients_per_round": clients, "fedavg_agg_launches": launches,
-          "launches": counts})
+          "clients_per_round": clients, "bucket_clients_round0": split,
+          "fedavg_agg_launches": launches, "launches": counts})
     if not ok:
-        raise RuntimeError("main path: too few fedavg_agg launches or "
-                           "non-finite accuracies")
-    return launches, max(clients)
+        raise RuntimeError("main path: not one fedavg_agg launch a round, "
+                           "or non-finite accuracies")
+    return launches, split
 
 
 def phase_round_profile():
@@ -265,8 +279,10 @@ def phase_round_profile():
     tr.step(0)
     torch.cuda.synchronize()
     wall_ms, by_name = _profile(lambda: tr.step(1))
+    # "Cat": the concatenation kernels, which the round no longer runs on
+    # the aggregate's way
     emit({"phase": "round_profile", "round_wall_ms": wall_ms,
-          **_share(by_name, wall_ms, "fedavg_agg")})
+          **_share(by_name, wall_ms, "fedavg_agg", "Cat")})
 
 
 def _bound(nbytes, ops, dtype_name):
@@ -321,12 +337,61 @@ def _agg_case(kernel, ref, shape, dtype_name, seed):
     }
 
 
-def phase_kernel(agg_kernel, agg_ref, clients):
+def _round_case(kernel, ref, leaf_shapes, split, dtype_name, seed):
+    """The round aggregate as the main path issues it: every leaf over the
+    size buckets (clients ``split``), one launch, against the plain
+    version (which concatenates the buckets), beside one ``tensordot`` a
+    leaf on the concatenated stacks (the yardstick) and beside the same
+    kernel launched once a leaf on them."""
+    import torch
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    parts = [[torch.randn((c,) + shape, generator=gen,
+                          device="cuda").to(dtype) for shape in leaf_shapes]
+             for c in split]
+    w = torch.rand(sum(split), generator=gen, device="cuda") + 0.1
+    w = w / w.sum()
+    w_lib = w.to(dtype)  # the library call takes one type throughout
+    stacks = [torch.cat(leaves) for leaves in zip(*parts)]
+    got = kernel.aggregate(parts, w)
+    want = ref.aggregate(parts, w)
+    torch.cuda.synchronize()
+    tol = TOLERANCE[dtype_name]
+    diffs = [(a.float() - b.float()).abs() for a, b in zip(got, want)]
+    ok = all(bool((d <= tol * (1 + b.float().abs())).all())
+             for d, b in zip(diffs, want))
+    elt = stacks[0].element_size()
+    nbytes = (sum(x.numel() + x[0].numel() for x in stacks) * elt
+              + 4 * sum(split))
+    return {
+        "split": list(split), "leaves": len(leaf_shapes),
+        "dtype": dtype_name,
+        "max_abs_err": max(float(d.max()) for d in diffs), "tolerance": tol,
+        "ok": ok,
+        **_times({"kernel": lambda: kernel.aggregate(parts, w),
+                  "plain": lambda: ref.aggregate(parts, w),
+                  "library": lambda: [torch.tensordot(w_lib, x, dims=1)
+                                      for x in stacks],
+                  "per_leaf": lambda: [kernel.weighted_aggregate(x, w)
+                                       for x in stacks]},
+                 big=False),
+        **_bound(nbytes, 2 * sum(x.numel() for x in stacks), dtype_name),
+    }
+
+
+def phase_kernel(agg_kernel, agg_ref, split):
     import torch
     from repro_torch.models.cnn import build_model
     from repro_torch.tree import tree_leaves
     params, _ = build_model("mnist", 0, torch.device("cpu"))
     leaf_shapes = [tuple(t.shape) for t in tree_leaves(params)]
+    clients = sum(split)
+    rounds = {d: _round_case(agg_kernel, agg_ref, leaf_shapes, split, d, 7)
+              for d in ("float32", "bfloat16")}
+    for case in rounds.values():
+        emit({"phase": "kernel", "kernel": "fedavg_agg",
+              "model": "mnist round aggregate (every leaf, both buckets, "
+                       "one launch)", **case})
     cases = {}
     for dtype_name in ("float32", "bfloat16"):
         for i, leaf in enumerate(leaf_shapes):
@@ -337,24 +402,12 @@ def phase_kernel(agg_kernel, agg_ref, clients):
     for (dtype_name, model, _), case in cases.items():
         emit({"phase": "kernel", "kernel": "fedavg_agg", "model": model,
               **case})
-    # the main path's round aggregate: every MNIST leaf, float32
-    main = [v for (d, m, _), v in cases.items()
-            if d == "float32" and m == "mnist"]
-    summary = {key: sum(c[key] for c in main)
-               for key in ("kernel_ms", "plain_ms", "library_ms",
-                           "kernel_eager_ms", "plain_eager_ms",
-                           "library_eager_ms", "bound_ms")}
-    summary["max_abs_err"] = max(c["max_abs_err"] for c in main)
-    summary["bound_by"] = ("bytes" if all(c["bound_by"] == "bytes"
-                                          for c in main) else "operations")
-    emit({"phase": "kernel", "kernel": "fedavg_agg",
-          "model": "mnist round aggregate (all leaves, float32)",
-          "clients": clients, **summary})
-    bad = [k for k, v in cases.items() if not v["ok"]]
+    bad = ([k for k, v in cases.items() if not v["ok"]]
+           + [k for k, v in rounds.items() if not v["ok"]])
     if bad:
         raise RuntimeError(f"fedavg_agg disagrees with its plain version: "
                            f"{bad}")
-    return summary
+    return rounds["float32"]
 
 
 def _steps(device, init, rounds, teacher=None):
@@ -469,15 +522,15 @@ def phase_vgg11(agg_kernel):
     launches = agg_kernel.weighted_aggregate.launches
     round_ends = [s.t_wall for s in tracer.spans if s.kind == "round"]
     per_round = [b - a for a, b in zip([0.0] + round_ends, round_ends)]
-    ok = (launches >= 18 * cfg.n_rounds
+    ok = (launches == cfg.n_rounds
           and all(math.isfinite(v) for v in res.accuracies + res.losses))
     emit({"phase": "vgg11", "ok": ok, "config": cfg.dataset, "lr": cfg.lr,
           "round_wall_s": per_round, "accuracies": res.accuracies,
           "losses": res.losses, "fedavg_agg_launches": launches,
           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
     if not ok:
-        raise RuntimeError("VGG-11 rounds: too few launches or non-finite "
-                           "accuracies or losses")
+        raise RuntimeError("VGG-11 rounds: not one launch a round, or "
+                           "non-finite accuracies or losses")
 
 
 def _free() -> None:
@@ -509,9 +562,10 @@ def _profile(run):
     return wall_ms, by_name
 
 
-def _share(by_name, wall_ms, needle=None):
+def _share(by_name, wall_ms, *needles):
     """The card's busy ms and share of the wall ms, the top kernels and,
-    with ``needle``, the device ms of the kernels whose name holds it."""
+    for each of ``needles``, the device ms of the kernels whose name
+    holds it."""
     if not by_name:
         return {"profile": "not measured"}
     busy = sum(ms for ms, _ in by_name.values())
@@ -520,7 +574,7 @@ def _share(by_name, wall_ms, needle=None):
            "device_busy_share": busy / wall_ms,
            "kernels": sum(n for _, n in by_name.values()),
            "top_kernels_ms": [[name[:80], ms, n] for name, (ms, n) in top]}
-    if needle is not None:
+    for needle in needles:
         own = [(ms, n) for name, (ms, n) in by_name.items()
                if needle in name]
         out.update({f"{needle}_ms": sum(ms for ms, _ in own),
@@ -711,6 +765,38 @@ def phase_decode_vs_prefill(launchers):
             "kv_heads": cfg.n_kv_heads, "window": cfg.sliding_window}
 
 
+def _prefill_decays(cfg, params, batch, seq):
+    """The decays ``w`` that one more prefill (the same weights and
+    tokens as ``_prefill_run``'s) feeds the ``wkv6`` kernel, read by a tap
+    on the op's kernel module: their minimum, and each layer's 0.1 %
+    quantile."""
+    import torch
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.launch.train import make_prefill_step
+    real = wkv_ops.kernel
+    mins, quantiles = [], []
+
+    class Tap:
+        def wkv(self, r, k, v, w, u):
+            flat = w.flatten().float()
+            mins.append(float(flat.min()))
+            kth = max(1, int(flat.numel() * 1e-3))
+            quantiles.append(float(torch.kthvalue(flat, kth).values))
+            return real.wkv(r, k, v, w, u)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device="cuda")
+    wkv_ops.kernel = Tap()
+    try:
+        make_prefill_step(cfg)(params, {"inputs": tokens})
+        torch.cuda.synchronize()
+    finally:
+        wkv_ops.kernel = real
+    return {"w_min": min(mins), "w_q001_per_layer": quantiles,
+            "w_q001_min": min(quantiles)}
+
+
 def phase_rwkv6(launchers, batch=4, seq=2048, decode_steps=8):
     import torch
     from repro_torch.configs import get_config
@@ -719,8 +805,9 @@ def phase_rwkv6(launchers, batch=4, seq=2048, decode_steps=8):
     cfg = get_config("rwkv6-1.6b")
     rec, counts, ok = _prefill_run(launchers, cfg, batch, seq, "wkv6")
     ok = ok and counts["wkv6"] == cfg.n_layers
-    # decode: a few steps from an empty state
     params = T.init_params(cfg, seed=0, device="cuda")
+    decays = _prefill_decays(cfg, params, batch, seq)
+    # decode: a few steps from an empty state
     step = make_serve_step(cfg)
     cache = T.init_cache(cfg, batch, seq, device="cuda")
     tokens = torch.arange(batch, device="cuda")[:, None]
@@ -732,7 +819,7 @@ def phase_rwkv6(launchers, batch=4, seq=2048, decode_steps=8):
         lat.append(time.perf_counter() - t0)
     finite = bool(torch.isfinite(logits).all())
     ok = ok and finite
-    emit({"phase": "rwkv6", "ok": ok, **rec,
+    emit({"phase": "rwkv6", "ok": ok, **rec, **decays,
           "decode_steps": decode_steps,
           "decode_per_token_ms_median": statistics.median(lat[1:]) * 1e3,
           "decode_logits_finite": finite})
@@ -840,8 +927,10 @@ def phase_flash_kernel(fa_kernel, fa_ref, prefill_shapes, f32_shapes):
     return cases["main"]
 
 
-def _wkv_case(wkv_kernel, wkv_ref, shape, dtype_name, seed):
-    """One kernel-vs-plain comparison of wkv6, with times."""
+def _wkv_case(wkv_kernel, wkv_ref, shape, dtype_name, seed, w_lo=0.7):
+    """One kernel-vs-plain comparison of wkv6, with times.  ``w_lo`` = 0:
+    decays from [0, 0.999] with exact zeros (every 5th step of every 3rd
+    channel), where a chunk's decay product underflows."""
     import torch
     dtype = getattr(torch, dtype_name)
     b, h, t, d = shape
@@ -852,8 +941,11 @@ def _wkv_case(wkv_kernel, wkv_ref, shape, dtype_name, seed):
                 * scale).to(dtype)
 
     r, k, v = normal(shape), normal(shape, 0.3), normal(shape)
-    w = (0.7 + 0.299 * torch.rand(shape, generator=gen,
-                                  device="cuda")).to(dtype)
+    w = w_lo + (0.999 - w_lo) * torch.rand(shape, generator=gen,
+                                           device="cuda")
+    if w_lo == 0.0:
+        w[:, :, ::5, ::3] = 0.0
+    w = w.to(dtype)
     u = normal((h, d), 0.1)
     got = wkv_kernel.wkv(r, k, v, w, u)
     want = wkv_ref.wkv(r, k, v, w, u)  # the step-by-step oracle
@@ -867,19 +959,29 @@ def _wkv_case(wkv_kernel, wkv_ref, shape, dtype_name, seed):
     else:
         def plain():
             return wkv_ref.wkv(r, k, v, w, u)
-    # r, k, v, w read and out written once, u read once; the recurrence
-    # is an f32 state update: 2 FLOP per multiply-add of the output's
-    # contraction with the state and of the state's decay and update
+    # r, k, v, w read and out written once, u read once
     nbytes = (5 * r.numel() + u.numel()) * r.element_size()
-    ops = 4 * d * d * t * b * h
+    if dtype_name == "bfloat16" and d >= 16:
+        # the chunked form's tensor-core products as the kernel issues
+        # them, per 16-step sub-chunk (T padded to 64-step chunks): the
+        # cross term 3 x 2*16*d*d and the state update 2 x 2*16*d*d (hi
+        # and lo parts), the intra term 2 x 2*16*16*d, at the bf16 rate
+        subs = -(-t // 64) * 4
+        bound = _bound(nbytes, b * h * subs * (160 * d * d + 1024 * d),
+                       "bfloat16")
+    else:
+        # the recurrence on the CUDA cores, in f32: 2 FLOP per multiply-
+        # add of the output's contraction with the state and of the
+        # state's decay and update
+        bound = _bound(nbytes, 4 * d * d * t * b * h, "float32")
     return {
-        "shape": list(shape), "dtype": dtype_name,
+        "shape": list(shape), "dtype": dtype_name, "w_lo": w_lo,
         "max_abs_err": float(diff.max()),
         "max_abs_out": float(want.float().abs().max()), "tolerance": tol,
         "ok": ok, "plain_form": "wkv_chunked" if t % 64 == 0 else "wkv",
         **_times({"kernel": lambda: wkv_kernel.wkv(r, k, v, w, u),
                   "plain": plain, "library": None}, nbytes > 50e6),
-        **_bound(nbytes, ops, "float32"),
+        **bound,
     }
 
 
@@ -888,14 +990,16 @@ WKV_SWEEP = [(1, 1, 32, 8), (2, 3, 64, 16), (1, 2, 128, 64), (2, 2, 96, 32),
 
 
 def phase_wkv_kernel(wkv_kernel, wkv_ref, main_shape):
-    cases = {"main": _wkv_case(wkv_kernel, wkv_ref, main_shape, "bfloat16",
-                               0),
-             "main-float32": _wkv_case(wkv_kernel, wkv_ref, main_shape,
-                                       "float32", 0)}
-    for i, shape in enumerate(WKV_SWEEP):
-        for dtype_name in ("float32", "bfloat16"):
-            cases[f"sweep{i}-{dtype_name}"] = _wkv_case(
-                wkv_kernel, wkv_ref, shape, dtype_name, 10 + i)
+    cases = {}
+    for w_lo, tag in ((0.7, ""), (0.0, "-strong")):
+        cases[f"main{tag}"] = _wkv_case(wkv_kernel, wkv_ref, main_shape,
+                                        "bfloat16", 0, w_lo)
+        cases[f"main{tag}-float32"] = _wkv_case(
+            wkv_kernel, wkv_ref, main_shape, "float32", 0, w_lo)
+        for i, shape in enumerate(WKV_SWEEP):
+            for dtype_name in ("float32", "bfloat16"):
+                cases[f"sweep{i}{tag}-{dtype_name}"] = _wkv_case(
+                    wkv_kernel, wkv_ref, shape, dtype_name, 10 + i, w_lo)
     for name, case in cases.items():
         emit({"phase": "wkv_kernel", "case": name, **case})
     bad = [k for k, v in cases.items() if not v["ok"]]
@@ -937,9 +1041,9 @@ def main() -> int:
                  "wkv6": wkv_kernel.wkv}
     try:
         phase_card([agg_kernel, fa_kernel, wkv_kernel])
-        launches, clients = phase_main_path(launchers)
+        launches, split = phase_main_path(launchers)
         phase_round_profile()
-        summary = phase_kernel(agg_kernel, agg_ref, clients)
+        summary = phase_kernel(agg_kernel, agg_ref, split)
         phase_card_vs_cpu(agg_kernel)
         phase_vgg11(agg_kernel)
         fa_launches, prefill_shapes = phase_transformer_prefill(launchers)

@@ -1,15 +1,17 @@
 """Hierarchical model aggregation (eq. 13) and the cross-region merge.
 
 Every weighted average here reduces through the port's ``fedavg_agg``
-op, one call per parameter leaf: the Hopper kernel for a CUDA tensor,
-the plain PyTorch version for a CPU tensor.
+op, one call per aggregate over all its parameter leaves: the Hopper
+kernel (one launch) for CUDA tensors, the plain PyTorch version for CPU
+tensors.
 
 1. ``fedavg``               — over a python list of client models.
 2. ``fedavg_stacked``       — over stacked client params (leading client
                               axis C).  ``fedavg_stacked_multi`` is its
                               multi-bucket form: the size-bucketed cohort
-                              engine's per-bucket stacks are concatenated
-                              and the union is aggregated once.
+                              engine's per-bucket stacks go to the op as
+                              they are, and it reads each bucket's rows
+                              in place (no concatenation).
 3. ``fedavg_pytrees``       — stacks per-region models and aggregates
                               them; ``staleness_weighted_merge`` is the
                               cross-region merge on top of it, weighting
@@ -39,32 +41,24 @@ def _normalized(weights, device) -> torch.Tensor:
 
 def fedavg(params_list: List, weights: Sequence[float]):
     """eq. (13) over a python list of client models."""
-    device = tree_leaves(params_list[0])[0].device
-    w = _normalized(weights, device)
-    return tree_map(
-        lambda *leaves: agg_ops.weighted_aggregate(torch.stack(leaves), w),
-        *params_list)
+    stacked = tree_map(lambda *leaves: torch.stack(leaves), *params_list)
+    return fedavg_stacked(stacked, weights)
 
 
 def fedavg_stacked(stacked_params, weights):
     """eq. (13) over stacked params (leading client axis C)."""
-    device = tree_leaves(stacked_params)[0].device
-    w = _normalized(weights, device)
-    return tree_map(lambda leaf: agg_ops.weighted_aggregate(leaf, w),
-                    stacked_params)
+    return fedavg_stacked_multi([stacked_params], weights)
 
 
 def fedavg_stacked_multi(stacked_parts: Sequence, weights):
     """eq. (13) over a sequence of stacked-param trees (one per size
-    bucket, leading client axes C_b): the buckets are concatenated along
-    the client axis and aggregated once.  ``weights`` has length
-    ``sum(C_b)`` in bucket order (padding clients carry weight 0)."""
-    if len(stacked_parts) == 1:
-        stacked = stacked_parts[0]
-    else:
-        stacked = tree_map(lambda *leaves: torch.cat(leaves, dim=0),
-                           *stacked_parts)
-    return fedavg_stacked(stacked, weights)
+    bucket, leading client axes C_b), every leaf of every bucket in one
+    op call.  ``weights`` has length ``sum(C_b)`` in bucket order
+    (padding clients carry weight 0)."""
+    buckets = [tree_leaves(part) for part in stacked_parts]
+    w = _normalized(weights, buckets[0][0].device)
+    out = iter(agg_ops.aggregate(buckets, w))
+    return tree_map(lambda _: next(out), stacked_parts[0])
 
 
 def client_finite_mask(stacked_params) -> torch.Tensor:
@@ -92,8 +86,7 @@ def fedavg_pytrees(params_list: List, weights):
     float32 weights.  A single-model "merge" is the identity."""
     if len(params_list) == 1:
         return params_list[0]
-    stacked = tree_map(lambda *xs: torch.stack(xs), *params_list)
-    return fedavg_stacked(stacked, weights)
+    return fedavg(params_list, weights)
 
 
 def staleness_merge_weights(sizes: Sequence[float],

@@ -2,6 +2,8 @@
 PyTorch version for a CPU tensor."""
 from __future__ import annotations
 
+from typing import List, Sequence
+
 import torch
 
 from . import kernel, ref
@@ -17,3 +19,17 @@ def weighted_aggregate(stacked: torch.Tensor, weights: torch.Tensor
     if stacked.device.type == "cpu":
         return ref.weighted_aggregate(stacked, weights)
     return kernel.weighted_aggregate(stacked, weights)
+
+
+def aggregate(buckets: Sequence[Sequence[torch.Tensor]],
+              weights: torch.Tensor) -> List[torch.Tensor]:
+    """eq. (13) for every leaf over every size bucket: ``buckets[b][l]``
+    is leaf ``l``'s (C_b, ...) stack in bucket ``b``, ``weights`` the
+    (sum C_b,) vector in bucket order.
+
+    CPU tensors go to :mod:`.ref`; any others to the kernel, one launch
+    for all of them, which launches or raises.
+    """
+    if buckets[0][0].device.type == "cpu":
+        return ref.aggregate(buckets, weights)
+    return kernel.aggregate(buckets, weights)

@@ -1,6 +1,8 @@
 """Plain PyTorch version of the fused FedAvg aggregation (eq. 13)."""
 from __future__ import annotations
 
+from typing import List, Sequence
+
 import torch
 
 
@@ -12,3 +14,14 @@ def weighted_aggregate(stacked: torch.Tensor, weights: torch.Tensor
     out = torch.tensordot(weights.to(torch.float32),
                           stacked.to(torch.float32), dims=1)
     return out.to(stacked.dtype)
+
+
+def aggregate(buckets: Sequence[Sequence[torch.Tensor]],
+              weights: torch.Tensor) -> List[torch.Tensor]:
+    """Every leaf over every bucket: ``buckets[b][l]`` is leaf ``l``'s
+    (C_b, ...) stack in bucket ``b``, ``weights`` (sum C_b,) in bucket
+    order.  Per leaf, the buckets' stacks are concatenated along the
+    client axis and aggregated with :func:`weighted_aggregate`."""
+    return [weighted_aggregate(torch.cat(leaves) if len(leaves) > 1
+                               else leaves[0], weights)
+            for leaves in zip(*buckets)]

@@ -19,22 +19,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
+from ..compare import graph_ms, in_turns
+
 SHAPE, KV_HEADS = (4, 24, 2048, 128), 8
 REPS = 10
-
-
-def _graph_ms(graph, torch) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / REPS
 
 
 def measure(csrc: Path) -> dict:
@@ -67,7 +58,7 @@ def measure(csrc: Path) -> dict:
     times = {name: [] for name in fns}
     for order in (("kernel", "sdpa"), ("sdpa", "kernel")) * 3:
         for name in order:
-            times[name].append(_graph_ms(graphs[name], torch))
+            times[name].append(graph_ms(graphs[name], REPS))
     return {"csrc": str(csrc), "device": torch.cuda.get_device_name(0),
             "max_abs_err": float(err.max()),
             "ok": bool((err <= 1e-2 * (1 + want.abs())).all()),
@@ -85,14 +76,7 @@ def main(argv=None) -> int:
     if args.one:
         print(json.dumps(measure(args.csrc[0])), flush=True)
         return 0
-    order = []
-    for r in range(args.rounds):
-        order += args.csrc if r % 2 == 0 else args.csrc[::-1]
-    rc = 0
-    for csrc in order:
-        rc |= subprocess.run([sys.executable, "-m", __spec__.name, "--one",
-                              str(csrc)]).returncode
-    return rc
+    return in_turns(__spec__.name, [str(b) for b in args.csrc], args.rounds)
 
 
 if __name__ == "__main__":

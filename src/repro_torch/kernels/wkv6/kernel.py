@@ -3,8 +3,11 @@
 The counterpart of the reference's Pallas kernel
 (``repro/kernels/wkv6/kernel.py``): the RWKV6 recurrence per (b, h) from
 a zero f32 state, output in r's type (f32 or bf16), for any sequence
-length.  The wrapper checks what the kernel takes and raises on anything
-else, allocates the output, launches on the current stream and never
+length.  The C entry point picks the kernel by type: bfloat16 at head
+dims of 16 and up takes the chunk-parallel form on the tensor cores,
+float32 (and bfloat16 at D = 8) the column-split scan on the CUDA cores.
+The wrapper checks what the kernels take and raises on anything else,
+allocates the output, launches on the current stream and never
 synchronizes.  ``wkv.launches`` counts launches.
 """
 from __future__ import annotations

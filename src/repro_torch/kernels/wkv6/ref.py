@@ -8,6 +8,8 @@ Per head of dim d, with data-dependent per-channel decay w_t in (0,1):
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -41,65 +43,105 @@ def wkv_step(s: torch.Tensor, r_t, k_t, v_t, w_t, u):
     return s_new, o.to(r_t.dtype)
 
 
+def _before(x: torch.Tensor) -> torch.Tensor:
+    """prod of x over the steps before each, along dim -2 (1 at the
+    first)."""
+    ones = torch.ones_like(x[..., :1, :])
+    return torch.cumprod(torch.cat([ones, x[..., :-1, :]], dim=-2), dim=-2)
+
+
+def _after(x: torch.Tensor) -> torch.Tensor:
+    """prod of x over the steps after each, along dim -2 (1 at the
+    last)."""
+    return torch.flip(_before(torch.flip(x, dims=[-2])), dims=[-2])
+
+
 def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 w: torch.Tensor, u: torch.Tensor,
                 chunk: int = 64) -> torch.Tensor:
-    """Chunked *parallel* WKV: the linear-attention chunk decomposition.
+    """Chunked *parallel* WKV, in f32: the plain twin of the CUDA kernel's
+    chunked form (``csrc/wkv6.cu``).  Any T: the last chunk is padded and
+    the padding dropped.
 
-    Within a chunk of length C (exclusive decay products
-    P_t = prod_{tau<t} w_tau, inclusive P^i_t = prod_{tau<=t} w_tau):
+    T is cut into chunks of ``chunk`` steps and each chunk into
+    sub-chunks of ``gcd(chunk, 16)``.  Within a sub-chunk, fwd_t =
+    prod_{tau<t} w_tau (from its start to t), bwd_s = prod_{tau>s} w_tau
+    (from s to its end) and g = prod_tau w_tau.  Target t of sub-chunk i
+    of a chunk gets
 
-      intra: o_t += sum_{s<t} ((r_t*P_t) . (k_s/P^i_s)) v_s
-             (lower-triangular (C,C) matmul)
-      bonus: o_t += (sum_i r_t[i] u[i] k_t[i]) v_t
-      cross: o_t += (r_t*P_t) @ S_chunk_start
-      state: S' = diag(p_end) S + sum_s ((p_end/P^i_s) * k_s)^T v_s
+      cross:   (r_t * fwd_t * prod_{q<i} g_q) @ S, S the chunk's state
+      between: sum over s of sub-chunk j < i of ((r_t * fwd_t) .
+               (k_s * bwd_s * prod_{j<q<i} g_q)) v_s, both sides
+               referenced to the start of sub-chunk i
+      within:  sum_{s<t} (sum_c r_t[c] k_s[c] prod_{s<tau<t} w_tau[c]) v_s
+               in sub-chunk i, the decay per channel
+      bonus:   (sum_c r_t[c] u[c] k_t[c]) v_t
 
-    Sequential work drops from T steps to T/C chunk steps of matmuls.
-    Numerics: f32; 1/P^i_s is bounded for the w = exp(-exp(x)) decays of
-    RWKV6 with C <= 64.
+    and the state moves a chunk at a time: S' = diag(prod_q g_q) S +
+    sum_s (k_s * bwd_s * prod_{q>j(s)} g_q)^T v_s.  Every decay factor
+    is a product of decays in [0, 1]: none overflows, and a decay of 0
+    (or a product that underflows) gives the exact 0.  The reference's
+    form (``repro/kernels/wkv6/ref.py``) divides k by the inclusive
+    product clamped at 1e-30 instead, which is wrong once a chunk's
+    product underflows.
     """
     b, h, t, d = r.shape
+    if t == 0:
+        return torch.empty_like(r)
     chunk = min(chunk, t)
-    if t % chunk:
-        raise ValueError(f"sequence {t} is not a multiple of chunk {chunk}")
-    n = t // chunk
+    sub = math.gcd(chunk, 16)
+    m = chunk // sub
+    n = -(-t // chunk)
     f32 = torch.float32
-    rf = r.to(f32).reshape(b, h, n, chunk, d)
-    kf = k.to(f32).reshape(b, h, n, chunk, d)
-    vf = v.to(f32).reshape(b, h, n, chunk, d)
-    wf = w.to(f32).reshape(b, h, n, chunk, d)
-    uf = u.to(f32)
 
-    # exclusive / inclusive cumulative decay products within each chunk
-    p_excl = torch.cumprod(
-        torch.cat([torch.ones_like(wf[..., :1, :]), wf[..., :-1, :]],
-                  dim=-2), dim=-2)                          # (b,h,n,C,d)
-    p_incl = p_excl * wf
-    p_end = p_incl[..., -1, :]                              # (b,h,n,d)
+    def chunks(x):
+        x = x.to(f32)
+        if n * chunk > t:  # the padding only moves the state past the end
+            x = torch.nn.functional.pad(x, (0, 0, 0, n * chunk - t))
+        return x.reshape(b, h, n, m, sub, d)
 
-    r_p = rf * p_excl
-    # source s -> target t decay: prod_{tau=s+1}^{t-1} = P_excl[t]/P_incl[s]
-    k_ip = kf / torch.clamp(p_incl, min=1e-30)
-    intra_scores = torch.einsum("bhncd,bhned->bhnce", r_p, k_ip)
-    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                 device=r.device), diagonal=-1)
-    intra = torch.einsum("bhnce,bhned->bhncd",
-                         torch.where(mask, intra_scores, 0.0), vf)
-    # bonus: o_t[j] += (sum_i r_t[i] u[i] k_t[i]) v_t[j]
-    dot_ruk = torch.sum(rf * uf[None, :, None, None, :] * kf, dim=-1,
-                        keepdim=True)                       # (b,h,n,C,1)
-    bonus = dot_ruk * vf
+    rf, kf, vf, wf = (chunks(x) for x in (r, k, v, w))
+    fwd = _before(wf)
+    r_fwd = rf * fwd                                        # (b,h,n,m,sub,d)
+    k_bwd = kf * _after(wf)
+    g = fwd[..., -1, :] * wf[..., -1, :]                    # (b,h,n,m,d)
 
-    # cross-chunk state: source s feeds the next chunk with decay
-    # prod_{tau=s+1}^{C-1} = p_end / P_incl[s]
-    kw = (p_end[..., None, :] / torch.clamp(p_incl, min=1e-30)) * kf
+    # within: decay[t, s] = prod_{s+1<tau<=t} w_{tau-1}, a cumulative
+    # product over t of the previous step's decay, from t = s + 2 on
+    steps = torch.arange(sub, device=r.device)
+    later = (steps[:, None] > steps[None, :] + 1)[..., None]  # [t, s]
+    w_prev = torch.cat([torch.ones_like(wf[..., :1, :]), wf[..., :-1, :]],
+                       dim=-2)
+    decay = torch.cumprod(torch.where(later, w_prev[..., :, None, :], 1.0),
+                          dim=-3)
+    scores = torch.einsum("bhnmtd,bhnmtsd->bhnmts", rf,
+                          kf[..., None, :, :] * decay)
+    bonus = torch.sum(rf * u.to(f32)[None, :, None, None, None, :] * kf,
+                      dim=-1)
+    scores = torch.tril(scores, diagonal=-1) + torch.diag_embed(bonus)
+    out = torch.einsum("bhnmts,bhnmsd->bhnmtd", scores, vf)
 
+    # between: span[i, j] = prod_{j<q<i} g_q for j < i, else 0
+    subs = torch.arange(m, device=r.device)
+    inside = ((subs[None, :, None] < subs[None, None, :])
+              & (subs[None, None, :] < subs[:, None, None]))  # [i, j, q]
+    span = torch.where(inside[..., None], g[..., None, None, :, :],
+                       1.0).prod(dim=-2)
+    span = span * (subs[None, :] < subs[:, None])[..., None]
+    k_ref = k_bwd[:, :, :, None] * span[..., None, :]      # [i, j, s]
+    scores = torch.einsum("bhnitd,bhnijsd->bhnitjs", r_fwd, k_ref)
+    out = out + torch.einsum("bhnitjs,bhnjsd->bhnitd", scores, vf)
+
+    # cross and state, a chunk at a time
+    head = _before(g)
+    r_cross = r_fwd * head[..., None, :]
+    k_state = k_bwd * _after(g)[..., None, :]
+    g_chunk = head[..., -1, :] * g[..., -1, :]              # (b,h,n,d)
     s = torch.zeros((b, h, d, d), dtype=f32, device=r.device)
     cross = []
-    for c in range(n):
-        cross.append(torch.einsum("bhcd,bhde->bhce", r_p[:, :, c], s))
-        s = p_end[:, :, c, :, None] * s + torch.einsum(
-            "bhcd,bhce->bhde", kw[:, :, c], vf[:, :, c])
-    out = intra + bonus + torch.stack(cross, dim=2)
-    return out.reshape(b, h, t, d).to(r.dtype)
+    for i in range(n):
+        cross.append(torch.einsum("bhmtd,bhde->bhmte", r_cross[:, :, i], s))
+        s = g_chunk[:, :, i, :, None] * s + torch.einsum(
+            "bhmsd,bhmse->bhde", k_state[:, :, i], vf[:, :, i])
+    out = (out + torch.stack(cross, dim=2)).reshape(b, h, n * chunk, d)
+    return out[:, :, :t].to(r.dtype)

@@ -99,3 +99,50 @@ def test_aggregation_weights_match_reference():
     want = jax_agg.aggregation_weights([3, 4], [5], 8)
     got = agg.aggregation_weights([3, 4], [5], 8, device="cpu")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-7)
+
+
+@pytest.mark.parametrize("split", [(3, 1), (1, 1, 2), (4,)])
+def test_fedavg_stacked_multi_bucket_splits_match_reference(split):
+    """Buckets of any split aggregate as the reference's concatenation."""
+    models = _models(sum(split), seed=4)
+    stacked = jax.tree_util.tree_map(lambda *xs: np.stack(xs), *models)
+    w = np.asarray([1.0, 2.0, 0.0, 3.0][:sum(split)], np.float32)
+    bounds = np.cumsum((0,) + split)
+    parts = [tree_map(lambda a, lo=lo, hi=hi: a[lo:hi], stacked)
+             for lo, hi in zip(bounds, bounds[1:])]
+    want = jax_agg.fedavg_stacked_multi(parts, jnp.asarray(w))
+    _close(agg.fedavg_stacked_multi([_t(p) for p in parts],
+                                    torch.from_numpy(w)), want)
+
+
+def test_fedavg_stacked_multi_is_one_op_call_without_concatenation(
+        monkeypatch):
+    """One aggregate, one call of the op with every bucket's leaves as
+    they are: the buckets are never concatenated on the way."""
+    models = _models(4, seed=5)
+    stacked = _t(jax.tree_util.tree_map(lambda *xs: np.stack(xs), *models))
+    parts = [tree_map(lambda a: a[:3], stacked),
+             tree_map(lambda a: a[3:], stacked)]
+    calls, cats = [], []
+
+    def spy(buckets, weights):
+        calls.append((buckets, weights))
+        return [torch.zeros(x.shape[1:]) for x in buckets[0]]
+
+    real_cat = torch.cat
+
+    def counting_cat(*args, **kwargs):
+        cats.append(args)
+        return real_cat(*args, **kwargs)
+
+    monkeypatch.setattr(agg.agg_ops, "aggregate", spy)
+    monkeypatch.setattr(torch, "cat", counting_cat)
+    out = agg.fedavg_stacked_multi(parts, torch.ones(4))
+    assert len(calls) == 1 and not cats
+    buckets, weights = calls[0]
+    assert len(buckets) == 2
+    for leaves, part in zip(buckets, parts):
+        assert all(a is b for a, b in zip(leaves, tree_leaves(part)))
+    assert weights.shape == (4,)
+    assert [t.shape for t in tree_leaves(out)] == [
+        t.shape[1:] for t in tree_leaves(stacked)]

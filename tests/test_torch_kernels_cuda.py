@@ -84,6 +84,109 @@ def test_fedavg_agg_rejects_what_it_does_not_take(cuda_device):
         kernel.weighted_aggregate(x, w.double())
 
 
+# the MNIST CNN's eight leaves (paper setup) and one that no 4-element
+# vector divides
+MNIST_LEAVES = [(32,), (32, 1, 3, 3), (64,), (64, 32, 3, 3), (128,),
+                (3136, 128), (10,), (128, 10)]
+
+
+def _bucket_stacks(leaves, split, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    parts = [[torch.from_numpy(rng.normal(size=(c,) + shape).astype(
+                 np.float32)).to(device=device, dtype=getattr(torch, dtype))
+              for shape in leaves] for c in split]
+    w = rng.uniform(0.1, 1.0, size=sum(split)).astype(np.float32)
+    return parts, torch.from_numpy(w / w.sum()).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaves", [MNIST_LEAVES, [(7,), (1001,), (3, 5)]])
+@pytest.mark.parametrize("split", [(64, 4), (1, 1), (68,)])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_fedavg_agg_many_leaves_one_launch(cuda_device, leaves, split, dtype,
+                                           tol):
+    """Every leaf over every bucket in one launch, against the plain
+    version on the concatenated stacks; the same bits on a second call
+    (the block's partial sums are added in a fixed order)."""
+    parts, w = _bucket_stacks(leaves, split, dtype, cuda_device)
+    before = kernel.weighted_aggregate.launches
+    got = ops.aggregate(parts, w)
+    again = ops.aggregate(parts, w)
+    torch.cuda.synchronize()
+    assert kernel.weighted_aggregate.launches == before + 2
+    want = ref.aggregate(parts, w)
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.float().cpu().numpy(),
+                                   c.float().cpu().numpy(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+def test_fedavg_agg_many_leaves_unaligned_bucket(cuda_device):
+    """One bucket's stack starts one element in (not 16-byte aligned):
+    that leaf takes the scalar path, the others stay vectorized."""
+    parts, w = _bucket_stacks([(64,), (3136, 128)], (3, 2), "float32",
+                              cuda_device)
+    base = torch.zeros(2 * 64 + 1, device=cuda_device)
+    base[1:] = parts[1][0].flatten()
+    parts[1][0] = base[1:].view(2, 64)
+    got = kernel.aggregate(parts, w)
+    torch.cuda.synchronize()
+    for a, c in zip(got, ref.aggregate(parts, w)):
+        np.testing.assert_allclose(a.cpu().numpy(), c.cpu().numpy(),
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_fedavg_agg_many_leaves_most_clients(cuda_device):
+    """12,288 clients over two buckets: the weights fill the shared
+    memory the kernel opts in to."""
+    parts, w = _bucket_stacks([(5,), (300,), (1030,)], (12000, 288),
+                              "float32", cuda_device)
+    got = kernel.aggregate(parts, w)
+    torch.cuda.synchronize()
+    for a, c in zip(got, ref.aggregate(parts, w)):
+        np.testing.assert_allclose(a.cpu().numpy(), c.cpu().numpy(),
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_fedavg_agg_vgg11_over_three_buckets(cuda_device, dtype, tol):
+    """VGG-11's 18 leaves over three width buckets, as a round with
+    skewed pools makes them, in one launch."""
+    from repro_torch.models import cnn
+    from repro_torch.tree import tree_leaves
+    leaves = [tuple(t.shape) for t in tree_leaves(
+        cnn.init_vgg11(torch.Generator().manual_seed(0)))]
+    parts, w = _bucket_stacks(leaves, (3, 2, 1), dtype, cuda_device)
+    before = kernel.weighted_aggregate.launches
+    got = kernel.aggregate(parts, w)
+    torch.cuda.synchronize()
+    assert kernel.weighted_aggregate.launches == before + 1
+    for a, c in zip(got, ref.aggregate(parts, w)):
+        np.testing.assert_allclose(a.float().cpu().numpy(),
+                                   c.float().cpu().numpy(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+def test_fedavg_agg_fullest_table(cuda_device):
+    """584 leaves over two buckets: the table fills the 32 KB of kernel
+    parameters, and one leaf more is refused."""
+    leaves = [(1 + i % 7, 1 + i % 300) for i in range(584)]
+    parts, w = _bucket_stacks(leaves, (2, 1), "float32", cuda_device)
+    got = kernel.aggregate(parts, w)
+    torch.cuda.synchronize()
+    for a, c in zip(got, ref.aggregate(parts, w)):
+        np.testing.assert_allclose(a.cpu().numpy(), c.cpu().numpy(),
+                                   rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="at most"):
+        kernel.aggregate([p + p[:1] for p in parts], w)
+
+
 # ---------------------------------------------------------------------------
 # flash_attention -------------------------------------------------------------
 # ---------------------------------------------------------------------------
@@ -241,31 +344,56 @@ WKV_SHAPES = [(1, 1, 32, 8), (2, 3, 64, 16), (1, 2, 128, 64),
               (2, 2, 96, 32), (2, 4, 200, 64)]
 
 
-def _wkv_inputs(shape, device, dtype, seed=0):
+# f32: the reference's 1e-4.  bf16: the inputs are the same bf16 values
+# on both sides and both sum in f32; the outputs differ by the rounding of
+# the result to bf16 (2**-8 relative) and, on the tensor cores, by the
+# bf16 high and low parts of the factored operands (~2**-17 of the
+# state's size): 2e-2 covers both with room
+WKV_TOLERANCE = [("float32", 1e-4), ("bfloat16", 2e-2)]
+
+
+def _wkv_inputs(shape, device, dtype, seed=0, w_lo=0.7):
+    """w_lo = 0: decays from [0, 0.999] with exact zeros (every 5th step
+    of every 3rd channel)."""
     b, h, t, d = shape
     rng = np.random.default_rng(seed)
     r = _normal(rng, shape, device, dtype)
     k = _normal(rng, shape, device, dtype, 0.3)
     v = _normal(rng, shape, device, dtype)
-    w = torch.from_numpy(rng.uniform(0.7, 0.999, size=shape).astype(
-        np.float32)).to(device=device, dtype=getattr(torch, dtype))
+    w = rng.uniform(w_lo, 0.999, size=shape).astype(np.float32)
+    if w_lo == 0.0:
+        w[:, :, ::5, ::3] = 0.0
+    w = torch.from_numpy(w).to(device=device, dtype=getattr(torch, dtype))
     u = _normal(rng, (h, d), device, dtype, 0.1)
     return r, k, v, w, u
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", WKV_SHAPES)
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
-                                       ("bfloat16", 2e-2)])
-def test_wkv6_matches_plain_version(cuda_device, shape, dtype, tol):
-    """bf16: inputs are the same bf16 values on both sides and both sum
-    in f32, so the outputs differ by the rounding of the result to bf16
-    (2**-8 relative) at most: 2e-2 covers it with room."""
-    r, k, v, w, u = _wkv_inputs(shape, cuda_device, dtype)
+@pytest.mark.parametrize("w_lo", [0.7, 0.0])
+@pytest.mark.parametrize("dtype,tol", WKV_TOLERANCE)
+def test_wkv6_matches_plain_version(cuda_device, shape, w_lo, dtype, tol):
+    r, k, v, w, u = _wkv_inputs(shape, cuda_device, dtype, w_lo=w_lo)
     before = wkv_kernel.wkv.launches
     got = wkv_ops.wkv(r, k, v, w, u)
     torch.cuda.synchronize()
     assert wkv_kernel.wkv.launches == before + 1
+    assert got.dtype == r.dtype and got.shape == r.shape
+    _assert_close(got, wkv_ref.wkv(r, k, v, w, u), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 17, 200, 2048])
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+@pytest.mark.parametrize("dtype,tol", WKV_TOLERANCE)
+def test_wkv6_strong_decays(cuda_device, t, d, dtype, tol):
+    """Decays down to exact zeros, where a chunk's decay product
+    underflows: ragged and long sequences, every head dim, both kernels
+    (bf16 at D >= 16 on the tensor cores)."""
+    r, k, v, w, u = _wkv_inputs((2, 2, t, d), cuda_device, dtype,
+                                seed=t + d, w_lo=0.0)
+    got = wkv_kernel.wkv(r, k, v, w, u)
+    torch.cuda.synchronize()
     assert got.dtype == r.dtype and got.shape == r.shape
     _assert_close(got, wkv_ref.wkv(r, k, v, w, u), tol)
 

@@ -16,12 +16,15 @@ from repro.kernels.wkv6 import kernel as jax_kernel, ref as jax_ref
 from repro_torch.kernels.wkv6 import kernel, ops, ref
 
 
-def _inputs(b, h, t, d, seed=0, w_lo=0.7):
+def _inputs(b, h, t, d, seed=0, w_lo=0.7, zeros=False):
+    """``zeros``: every 5th step of every 3rd channel decays fully."""
     rng = np.random.default_rng(seed)
     r = rng.normal(size=(b, h, t, d)).astype(np.float32)
     k = (rng.normal(size=(b, h, t, d)) * 0.3).astype(np.float32)
     v = rng.normal(size=(b, h, t, d)).astype(np.float32)
     w = rng.uniform(w_lo, 0.999, size=(b, h, t, d)).astype(np.float32)
+    if zeros:
+        w[:, :, ::5, ::3] = 0.0
     u = (rng.normal(size=(h, d)) * 0.1).astype(np.float32)
     return r, k, v, w, u
 
@@ -130,3 +133,52 @@ def test_kernel_wrapper_rejects_cpu_tensor():
     ta = _torch(_inputs(1, 1, 16, 8))
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel.wkv(*ta)
+
+
+# strong decays, w in [0, 0.999] with exact zeros: a chunk's decay product
+# underflows, where a factorisation through r * P_excl and k / P_incl
+# fails (the reference's chunked form is off by up to ~3.7 there)
+@pytest.mark.parametrize("b,h,t,d,chunk", [
+    (1, 2, 256, 16, 64), (2, 2, 200, 8, 64), (1, 3, 130, 32, 64),
+    (1, 1, 17, 16, 64), (1, 2, 96, 64, 16),
+])
+def test_chunked_form_matches_scan_at_strong_decays(b, h, t, d, chunk):
+    """f32: ``wkv_chunked`` (any T: a ragged last chunk is padded) against
+    the port's and the reference's step-by-step oracles at the
+    reference's tolerance."""
+    arrays = _inputs(b, h, t, d, seed=t + d, w_lo=0.0, zeros=True)
+    ta = _torch(arrays)
+    got = ref.wkv_chunked(*ta, chunk=chunk)
+    assert got.dtype == torch.float32 and got.shape == ta[0].shape
+    np.testing.assert_allclose(got.numpy(), ref.wkv(*ta).numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jax_ref.wkv(*map(jnp.asarray, arrays))),
+        rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("t", [256, 200])
+def test_chunked_form_bf16_inputs_at_strong_decays(t):
+    """bf16 inputs: both sides upcast the same values and sum in f32, so
+    they differ by the rounding of the result to bf16 at most."""
+    ta = [x.to(torch.bfloat16)
+          for x in _torch(_inputs(2, 2, t, 16, seed=9, w_lo=0.0,
+                                  zeros=True))]
+    got = ref.wkv_chunked(*ta, chunk=64)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               ref.wkv(*ta).to(torch.float32).numpy(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_dispatcher_chunked_form_at_strong_decays():
+    """The CPU dispatcher's chunked path (T >= 256) at decays down to 0,
+    against the port's and the reference's step-by-step oracles."""
+    arrays = _inputs(1, 2, 256, 16, seed=11, w_lo=0.0, zeros=True)
+    ta = _torch(arrays)
+    got = ops.wkv(*ta).numpy()
+    np.testing.assert_allclose(got, ref.wkv(*ta).numpy(), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(
+        got, np.asarray(jax_ref.wkv(*map(jnp.asarray, arrays))), rtol=1e-4,
+        atol=1e-4)
