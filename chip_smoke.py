@@ -22,11 +22,13 @@ Phases, each printed as one JSON object on its own line:
 4. ``kernel``: the round aggregate as the main path issues it (every
    MNIST leaf over its two buckets, one launch), against its plain
    PyTorch version and beside one ``tensordot`` a leaf on the
-   concatenated stack; then each leaf alone and VGG-11's flat buffer;
-   float32 and bfloat16, with the error, the tolerance and CUDA-event
-   times of the kernel, the plain version and the library call (on the
-   card alone, from a replayed CUDA graph, and issued eagerly from
-   Python), beside the least time the card could take (``bound_ms``).
+   concatenated stack; the cross-region merge at ``multi_region`` (4
+   region models, one at weight 0, one launch); then each leaf alone and
+   VGG-11's flat buffer; float32 and bfloat16, with the error, the
+   tolerance and CUDA-event times of the kernel, the plain version and
+   the library call (on the card alone, from a replayed CUDA graph, and
+   issued eagerly from Python), beside the least time the card could
+   take (``bound_ms``).
 5. ``card_vs_cpu``: two batched rounds of the same setup from the same
    initial params on the card and on the CPU, TF32 off for matmul and
    cuDNN, cuDNN deterministic: plan cases, latencies and wall clocks
@@ -36,23 +38,40 @@ Phases, each printed as one JSON object on its own line:
    init moved by one part in 1e7.
 6. ``vgg11``: two rounds of ``dataset="cifar10"`` (VGG-11, lr 0.005),
    the largest aggregate the kernel sees.
-7. ``transformer_prefill``: full-width ``llama3.2-3b`` (random bf16
-   weights from a seed), ``make_prefill_step`` on B = 4 sequences of
-   2048 tokens: one ``flash_attention`` launch per layer (28), finite
-   logits, wall time, peak memory and the kernel's share of the step
-   under ``torch.profiler``.
-8. ``transformer_decode``: the same model behind ``TransformerBackend``
-   (seq_len 2048) answering batches of 8 requests: per-token latency.
-9. ``decode_vs_prefill``: the same model in float32 (TF32 off), B = 1:
-   the prefill's logits at all 256 positions (through the kernel)
-   against 256 plain ``serve_step``s; then full-width ``rwkv6-1.6b``
-   the same way over 64 positions (prefill through ``wkv6``, decode
-   through the plain ``wkv_step``).
-10. ``rwkv6``: full-width ``rwkv6-1.6b`` in bf16, prefill of B = 4 x 2048
+7. ``propagation``: the coverage windows of ``paper`` (80 satellites,
+   48 h at 10 s) and ``mega_constellation`` (1,080 satellites, 2
+   regions, 6 h) with the torch backend on the card against NumPy:
+   every interval identical; host times of both.
+8. ``scenario_paper``: ``run_fl`` with ``scenario="paper"`` and with
+   ``use_constellation=True``, 3 rounds at the paper's setup on the
+   card: one ``fedavg_agg`` launch a round; plan cases, realized
+   latencies and wall clocks identical to the same run on the CPU,
+   accuracies within 4/eval_size (TF32 off).
+9. ``engine_fl``: ``SAGINEngine("multi_region", fl=FLConfig(n_devices=20,
+   n_air=2), backend="torch").run(4)``: 4 regions, propagation on the
+   card, a ring merge every 2 rounds; ``fedavg_agg`` launches = one a
+   region-round plus one a merge; event order and first merge identical
+   to a 2-round CPU run; round and merge walls.
+10. ``engine_chaos``: ``SAGINEngine("chaos", fl=FLConfig(n_devices=12,
+    n_air=2)).run(6)``: every fault kind injected and recovered,
+    quarantined updates counted, finite global params.
+11. ``transformer_prefill``: full-width ``llama3.2-3b`` (random bf16
+    weights from a seed), ``make_prefill_step`` on B = 4 sequences of
+    2048 tokens: one ``flash_attention`` launch per layer (28), finite
+    logits, wall time, peak memory and the kernel's share of the step
+    under ``torch.profiler``.
+12. ``transformer_decode``: the same model behind ``TransformerBackend``
+    (seq_len 2048) answering batches of 8 requests: per-token latency.
+13. ``decode_vs_prefill``: the same model in float32 (TF32 off), B = 1:
+    the prefill's logits at all 256 positions (through the kernel)
+    against 256 plain ``serve_step``s; then full-width ``rwkv6-1.6b``
+    the same way over 64 positions (prefill through ``wkv6``, decode
+    through the plain ``wkv_step``).
+14. ``rwkv6``: full-width ``rwkv6-1.6b`` in bf16, prefill of B = 4 x 2048
     tokens (one ``wkv6`` launch per layer, 24) and decode steps; the
     smallest decay ``w`` the prefill feeds the kernel, and each layer's
     0.1 % quantile of it.
-11. ``flash_kernel`` / ``wkv_kernel``: each kernel against its plain
+15. ``flash_kernel`` / ``wkv_kernel``: each kernel against its plain
     version on the card at the shapes the main paths gave it (in their
     bf16 and in f32) and over the reference's sweep, f32 and bf16, with
     decays from [0.7, 0.999] and (wkv) also from [0, 0.999] with exact
@@ -61,10 +80,11 @@ Phases, each printed as one JSON object on its own line:
     for flash also the achieved TFLOP/s and the share of the bound.
 
 Every path is driven with every kernel's launch count set to 0 just
-before it and read just after.  Then a ``{"kernels": [...]}`` line and,
-last, the device line.  Any failed phase, a missing CUDA device, or a
-directory without the rest of the repository gives a non-zero exit and
-no result line.
+before it and read just after; ``fedavg_agg``'s count in the kernel
+line sums its paths (phases 2, 8 and 9).  Then a ``{"kernels": [...]}``
+line and, last, the device line.  Any failed phase, a missing CUDA
+device, or a directory without the rest of the repository gives a
+non-zero exit and no result line.
 """
 from __future__ import annotations
 
@@ -337,12 +357,14 @@ def _agg_case(kernel, ref, shape, dtype_name, seed):
     }
 
 
-def _round_case(kernel, ref, leaf_shapes, split, dtype_name, seed):
+def _round_case(kernel, ref, leaf_shapes, split, dtype_name, seed,
+                zero=None):
     """The round aggregate as the main path issues it: every leaf over the
     size buckets (clients ``split``), one launch, against the plain
     version (which concatenates the buckets), beside one ``tensordot`` a
     leaf on the concatenated stacks (the yardstick) and beside the same
-    kernel launched once a leaf on them."""
+    kernel launched once a leaf on them.  ``zero``: the client whose
+    weight is 0 (a region that sits a merge out)."""
     import torch
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -350,6 +372,8 @@ def _round_case(kernel, ref, leaf_shapes, split, dtype_name, seed):
                           device="cuda").to(dtype) for shape in leaf_shapes]
              for c in split]
     w = torch.rand(sum(split), generator=gen, device="cuda") + 0.1
+    if zero is not None:
+        w[zero] = 0.0
     w = w / w.sum()
     w_lib = w.to(dtype)  # the library call takes one type throughout
     stacks = [torch.cat(leaves) for leaves in zip(*parts)]
@@ -392,6 +416,14 @@ def phase_kernel(agg_kernel, agg_ref, split):
         emit({"phase": "kernel", "kernel": "fedavg_agg",
               "model": "mnist round aggregate (every leaf, both buckets, "
                        "one launch)", **case})
+    # the cross-region merge at multi_region: 4 region models stacked
+    # (one bucket), every leaf in one launch, one region at weight 0
+    merge = _round_case(agg_kernel, agg_ref, leaf_shapes, [4], "float32",
+                        8, zero=2)
+    emit({"phase": "kernel", "kernel": "fedavg_agg",
+          "model": "multi_region merge (4 regions, one at weight 0, every "
+                   "leaf, one launch)", **merge})
+    rounds["merge"] = merge
     cases = {}
     for dtype_name in ("float32", "bfloat16"):
         for i, leaf in enumerate(leaf_shapes):
@@ -531,6 +563,257 @@ def phase_vgg11(agg_kernel):
     if not ok:
         raise RuntimeError("VGG-11 rounds: not one launch a round, or "
                            "non-finite accuracies or losses")
+
+
+def _wall(run):
+    """``run()``'s result and its host seconds, ended by a synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_propagation():
+    """Coverage windows of ``paper`` (80 satellites, 48 h at 10 s) and
+    ``mega_constellation`` (1,080 satellites, 2 regions, 6 h) with the
+    torch backend on the card against NumPy: every interval identical.
+    Times on the host clock: the whole ``access_intervals_multi`` and
+    ``visibility`` alone (the part that runs on the card), each the
+    median of 5 calls after one that warms both backends up."""
+    import numpy as np
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.sim import propagation as P
+
+    def median_wall(run):
+        walls = [_wall(run) for _ in range(5)]
+        return walls[0][0], statistics.median(w for _, w in walls)
+
+    out, ok = {}, True
+    for name in ("paper", "mega_constellation"):
+        scn = get_scenario(name)
+        ws = scn.build_constellation()
+        t = np.arange(0.0, scn.horizon, scn.dt)
+        for backend in ("torch", "numpy"):
+            P.access_intervals_multi(ws, scn.regions, scn.horizon, scn.dt,
+                                     backend=backend)
+        got, torch_s = median_wall(lambda: P.access_intervals_multi(
+            ws, scn.regions, scn.horizon, scn.dt, backend="torch"))
+        want, numpy_s = median_wall(lambda: P.access_intervals_multi(
+            ws, scn.regions, scn.horizon, scn.dt, backend="numpy"))
+        vis_torch, vis_torch_s = median_wall(lambda: P.visibility(
+            ws, scn.regions, t, backend="torch"))
+        vis_numpy, vis_numpy_s = median_wall(lambda: P.visibility(
+            ws, scn.regions, t, backend="numpy"))
+        same = all([(i.sat, i.start, i.end) for i in got[r]]
+                   == [(i.sat, i.start, i.end) for i in want[r]]
+                   for r in want) and list(got) == list(want)
+        same_mask = bool((vis_torch == vis_numpy).all())
+        ok = ok and same and same_mask
+        out[name] = {"shape": [len(scn.regions), len(t), ws.n_sats],
+                     "intervals": {r: len(v) for r, v in want.items()},
+                     "intervals_identical": same,
+                     "mask_identical": same_mask,
+                     "torch_s": torch_s, "numpy_s": numpy_s,
+                     "visibility_torch_s": vis_torch_s,
+                     "visibility_numpy_s": vis_numpy_s}
+    emit({"phase": "propagation", "ok": ok, **out})
+    if not ok:
+        raise RuntimeError("propagation: the card's windows differ from "
+                           "NumPy's")
+
+
+def _tf32_off():
+    """TF32 off for matmul and cuDNN, cuDNN deterministic; returns the
+    settings to restore."""
+    import torch
+    b = torch.backends
+    saved = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
+             b.cudnn.deterministic)
+    b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = False
+    b.cudnn.deterministic = True
+    return saved
+
+
+def _restore(saved):
+    import torch
+    b = torch.backends
+    (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
+     b.cudnn.deterministic) = saved
+
+
+def phase_scenario_paper(launchers):
+    """``run_fl`` with the Walker-Star constellation setting each round's
+    T_i — the paper preset (48 h of windows) and the bare constellation —
+    at the paper's 50 devices, 5 air nodes and the MNIST CNN, 3 rounds on
+    the card: one ``fedavg_agg`` launch a round.  The same run with
+    ``device="cpu"`` gives identical plan cases, realized latencies and
+    wall clocks, and accuracies within 4/eval_size (TF32 off on both)."""
+    import torch
+    from repro_torch.fl import FLConfig, run_fl
+    from repro_torch.models.cnn import build_model
+    from repro_torch.obs import ObsConfig, Tracer
+    params, _ = build_model("mnist", 0, torch.device("cpu"))
+    total, out, ok = 0, {}, True
+    saved = _tf32_off()
+    try:
+        for label, kw in (("scenario=paper", dict(scenario="paper")),
+                          ("use_constellation", dict(use_constellation=True))):
+            cfg = FLConfig(n_rounds=3, **kw)
+            tracer = Tracer(ObsConfig(path=None))
+            set_counts(launchers)
+            res, wall = _wall(lambda: run_fl(cfg, tracer, params=params))
+            launches = read_counts(launchers)["fedavg_agg"]
+            total += launches
+            cpu = run_fl(FLConfig(n_rounds=3, device="cpu", **kw),
+                         params=params)
+            ends = [s.t_wall for s in tracer.spans if s.kind == "round"]
+            acc_err = max(abs(a - b) for a, b in zip(res.accuracies,
+                                                     cpu.accuracies))
+            good = (launches == cfg.n_rounds and res.cases == cpu.cases
+                    and res.latencies == cpu.latencies
+                    and res.times == cpu.times
+                    and acc_err <= 4 / cfg.eval_size
+                    and all(math.isfinite(a) for a in res.accuracies))
+            ok = ok and good
+            out[label] = {
+                "ok": good, "execution": cfg.resolved_execution(),
+                "fedavg_agg_launches": launches, "wall_s": wall,
+                "round_wall_s": [b - a for a, b in zip(ends, ends[1:])],
+                "cases": res.cases, "latencies": res.latencies,
+                "times": res.times, "accuracies": res.accuracies,
+                "cpu_accuracies": cpu.accuracies,
+                "max_accuracy_err": acc_err,
+                "accuracy_tolerance": 4 / cfg.eval_size,
+                "cases_latencies_times_equal": (
+                    res.cases == cpu.cases and res.latencies == cpu.latencies
+                    and res.times == cpu.times)}
+    finally:
+        _restore(saved)
+    emit({"phase": "scenario_paper", "ok": ok, "tf32": False, **out})
+    if not ok:
+        raise RuntimeError("scenario_paper: not one fedavg_agg launch a "
+                           "round, or card and CPU runs disagree")
+    return total
+
+
+def _timed_engine(engine):
+    """Wrap the engine's trainers' steps and its merge with host clocks
+    that end in a synchronize; returns the lists they fill."""
+    import torch
+    steps, merges = [], []
+
+    def timed(fn, sink):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            sink.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    for t in engine.trainers:
+        t.step = timed(t.step, steps)
+    engine._policy_merge = timed(engine._policy_merge, merges)
+    return steps, merges
+
+
+def _merge_fields(ev):
+    return [ev.barrier_round, ev.time, list(ev.staleness), list(ev.weights),
+            list(ev.isl_costs), ev.policy, ev.hub, list(ev.participants),
+            list(ev.recipients)]
+
+
+def phase_engine_fl(launchers):
+    """``SAGINEngine("multi_region", fl=FLConfig(n_devices=20, n_air=2),
+    backend="torch").run(4)`` on the card: 4 regions x 20 devices x 2 air
+    nodes, propagation on the card, a synchronous ring merge every 2
+    rounds.  ``fedavg_agg`` launches = one a region-round plus one a
+    merge; the event order and the first merge's weights, staleness, ISL
+    costs and time are those of a 2-round run with ``device="cpu"``.
+    Then one more round of every region and its merge under
+    ``torch.profiler``: the card's busy share."""
+    from repro_torch.fl import FLConfig
+    from repro_torch.sim import SAGINEngine
+    fl = FLConfig(n_devices=20, n_air=2)
+    (eng, build_s) = _wall(lambda: SAGINEngine("multi_region", fl=fl,
+                                               backend="torch"))
+    steps, merges = _timed_engine(eng)
+    set_counts(launchers)
+    _, run_s = _wall(lambda: eng.run(4))
+    launches = read_counts(launchers)["fedavg_agg"]
+    trained = sum(sum(t.result.participated) for t in eng.trainers)
+    merged = sum(len(m.participants) > 1 for m in eng.merges)
+    cpu = SAGINEngine("multi_region", fl=FLConfig(n_devices=20, n_air=2,
+                                                  device="cpu"))
+    cpu.run(2)
+    n_cpu = len(cpu.step_order)
+    same = (eng.step_order[:n_cpu] == cpu.step_order
+            and _merge_fields(eng.merges[0]) == _merge_fields(cpu.merges[0]))
+    regions = len(eng.trainers)
+    ok = (launches == trained + merged and len(eng.merges) == 2
+          and trained == 16 and same
+          and all(math.isfinite(a) for m in eng.merges
+                  for a in m.accuracies))
+    rec = {"phase": "engine_fl", "ok": ok, "scenario": "multi_region",
+           "regions": regions, "n_devices": fl.n_devices, "n_air": fl.n_air,
+           "execution": fl.resolved_execution(), "propagation": "torch",
+           "build_s": build_s, "run_s": run_s, "round_wall_s": list(steps),
+           # past each region's first round
+           "steady_round_wall_s_median": statistics.median(steps[regions:]),
+           "merge_wall_s": list(merges),
+           "fedavg_agg_launches": launches, "region_rounds": trained,
+           "merges": [_merge_fields(m) + [list(m.accuracies)]
+                      for m in eng.merges],
+           "cpu_first_merge": _merge_fields(cpu.merges[0]),
+           "step_order_and_first_merge_equal_cpu": same,
+           "summary": eng.summary()}
+    prof_wall, by_name = _profile(lambda: eng.run(1))
+    emit({**rec, "profiled_round_and_merge": _share(by_name, prof_wall,
+                                                    "fedavg_agg")})
+    if not ok:
+        raise RuntimeError("engine_fl: fedavg_agg launches != region-rounds "
+                           "+ merges, or the merges differ from the CPU's")
+    return launches
+
+
+def phase_engine_chaos(launchers):
+    """``SAGINEngine("chaos", fl=FLConfig(n_devices=12, n_air=2)).run(6)``
+    on the card (3 regions): every fault kind injected and recovered at
+    least once, in-round faults always absorbed, quarantined updates
+    counted, finite global params."""
+    import torch
+    from repro_torch.fl import FLConfig
+    from repro_torch.obs import ObsConfig
+    from repro_torch.resilience import FAULT_KINDS
+    from repro_torch.sim import SAGINEngine
+    from repro_torch.tree import tree_leaves
+    eng = SAGINEngine("chaos", fl=FLConfig(n_devices=12, n_air=2,
+                                           obs=ObsConfig(path=None)))
+    set_counts(launchers)
+    _, run_s = _wall(lambda: eng.run(6))
+    launches = read_counts(launchers)["fedavg_agg"]
+    inj = eng.fault_injector
+    quarantined = eng.tracer.metrics.counter("quarantine.updates").value
+    finite = eng.global_params is not None and all(
+        bool(torch.isfinite(t).all()) for t in tree_leaves(eng.global_params))
+    ok = (all(inj.injected[k] > 0 and inj.recovered[k] > 0
+              for k in FAULT_KINDS)
+          and all(inj.recovered[k] >= inj.injected[k]
+                  for k in ("sat_loss", "straggler", "nan_update",
+                            "trainer_crash"))
+          and quarantined > 0 and finite)
+    emit({"phase": "engine_chaos", "ok": ok, "regions": len(eng.trainers),
+          "execution": eng.trainers[0].execution, "run_s": run_s,
+          "injected": dict(inj.injected), "recovered": dict(inj.recovered),
+          "quarantined_updates": quarantined, "global_params_finite": finite,
+          "merges": [_merge_fields(m) for m in eng.merges],
+          "fedavg_agg_launches": launches})
+    if not ok:
+        raise RuntimeError("engine_chaos: a fault kind was not injected and "
+                           "recovered, or the global params are not finite")
 
 
 def _free() -> None:
@@ -1046,6 +1329,10 @@ def main() -> int:
         summary = phase_kernel(agg_kernel, agg_ref, split)
         phase_card_vs_cpu(agg_kernel)
         phase_vgg11(agg_kernel)
+        phase_propagation()
+        launches += phase_scenario_paper(launchers)
+        launches += phase_engine_fl(launchers)
+        phase_engine_chaos(launchers)
         fa_launches, prefill_shapes = phase_transformer_prefill(launchers)
         phase_transformer_decode(launchers)
         f32_shapes = phase_decode_vs_prefill(launchers)

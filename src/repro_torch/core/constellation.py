@@ -108,14 +108,14 @@ def access_intervals(constellation: WalkerStar, lat_deg: float = 40.0,
                      min_elevation_deg: float = 15.0) -> List[AccessInterval]:
     """MATLAB ``accessIntervals`` equivalent: per-satellite coverage windows.
 
-    The reference delegates to its vectorized propagation engine, which
-    the port has not carried over yet (ROADMAP: ``sim``/``scenarios``).
-    Until then this raises; the round loop uses the static satellite list
-    (``FLConfig.use_constellation=False``).
+    Delegates to the vectorized multi-region engine in
+    ``repro_torch.sim.propagation`` (same boundary conventions and
+    ordering as the original per-satellite loop, which survives there as
+    ``access_intervals_loop`` for equivalence tests and benchmarks).
     """
-    raise NotImplementedError(
-        "access_intervals needs repro_torch.sim.propagation, which is not "
-        "ported yet (ROADMAP: sim/scenarios)")
+    from ..sim.propagation import access_intervals_vec
+    return access_intervals_vec(constellation, lat_deg, lon_deg, t_end=t_end,
+                                dt=dt, min_elevation_deg=min_elevation_deg)
 
 
 def serving_sequence(intervals: Sequence[AccessInterval], t0: float,

@@ -2,7 +2,9 @@
 
 ``local_update`` runs H steps of ``torch.func.grad_and_value`` on one
 node's ``(H, B, ...)`` batch stack (the reference's ``lax.scan`` becomes
-a Python loop over H).  ``masked_local_update`` / ``cohort_local_update``
+a Python loop over H); ``vmapped_local_update`` runs a stack of clients,
+each from its own params and learning rate, through ``torch.func.vmap``.
+``masked_local_update`` / ``cohort_local_update``
 are the batched engine's versions: a per-sample validity mask lets
 clients with different pool sizes share one padded ``(C, H, Bmax, ...)``
 cohort tensor, and ``cohort_local_update`` trains all C clients at once
@@ -51,6 +53,19 @@ def local_update(apply_fn: Callable, params, xs, ys, lr):
         params = _sgd(params, g, lr)
         losses.append(loss)
     return params, torch.stack(losses).mean()
+
+
+def vmapped_local_update(apply_fn: Callable, stacked_params, xs, ys, lrs):
+    """Run many clients at once.
+
+    stacked_params: parameter tree with leading client axis C.
+    xs: (C, H, B, ...), ys: (C, H, B), lrs: (C,).  Returns (stacked new
+    params, per-client mean losses of shape (C,)).
+    """
+    def one(params, x, y, lr):
+        return local_update(apply_fn, params, x, y, lr)
+
+    return vmap(one)(stacked_params, xs, ys, lrs)
 
 
 def masked_cross_entropy(logits, labels, mask):
@@ -121,3 +136,11 @@ def evaluate(apply_fn: Callable, params, x, y) -> Tuple[torch.Tensor,
         loss = cross_entropy(logits, y)
         acc = torch.mean((torch.argmax(logits, -1) == y).to(torch.float32))
     return loss, acc
+
+
+def stacked_evaluate(apply_fn: Callable, stacked_params, x,
+                     y) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(losses, accuracies), each of shape (C,), for a stack of models
+    (leading axis C) on ONE shared eval batch — the apples-to-apples
+    comparison of per-region models against the merged global model."""
+    return vmap(lambda p: evaluate(apply_fn, p, x, y))(stacked_params)

@@ -37,7 +37,8 @@ import torch
 
 from ..data.pipeline import BucketedCohort, build_bucketed_cohort
 from ..device import resolve_device
-from .aggregation import fedavg_stacked_multi
+from ..tree import tree_leaves
+from .aggregation import client_finite_mask, fedavg_stacked_multi
 from .client import cohort_local_update
 
 SHARDING_MODES = ("auto", "off")
@@ -92,6 +93,7 @@ class CohortEngine:
         self.signatures: set = set()
         self.round_signatures: set = set()
         self.stats = CohortEngineStats()
+        self.last_quarantined = 0
 
     # -- cohort construction ------------------------------------------------
     def build(self, x: np.ndarray, y: np.ndarray,
@@ -124,13 +126,23 @@ class CohortEngine:
         st.layout_elements += cohort.layout_elements
 
     def round(self, params, cohort: BucketedCohort, lr: float,
-              total: int) -> Tuple[object, List[float]]:
+              total: int, corrupt: Sequence[int] = (),
+              quarantine: bool = False) -> Tuple[object, List[float]]:
         """Train every bucket and aggregate — one FL round on device.
 
         Returns ``(new_global_params, losses)`` with ``losses`` the real
         clients' mean local losses in canonical cohort order.
+
+        ``corrupt`` (fault injection: canonical client positions whose
+        trained models are NaN-filled AFTER the local update — RNG
+        streams untouched) and ``quarantine`` (drop non-finite client
+        updates before aggregation, renormalizing the eq.-(13) weights
+        over the survivors; the drop count lands in
+        :attr:`last_quarantined`).  A round whose every update was
+        dropped keeps the previous global model.
         """
         tr = self.tracer
+        self.last_quarantined = 0
         if tr.enabled:
             # new layouts = bucket shapes not seen before (the reference
             # counts these as recompiles; the name is kept for its report)
@@ -146,7 +158,8 @@ class CohortEngine:
         if tr.enabled:
             tr.metrics.gauge("cohort.padding_ratio").set(
                 self.stats.padding_ratio)
-        return self._execute(params, cohort, lr, total)
+        return self._execute(params, cohort, lr, total, corrupt=corrupt,
+                             quarantine=quarantine)
 
     def _trace_dispatch(self, cb, t0: float):
         """Emit one ``bucket_dispatch`` span (enabled tracer only).
@@ -167,25 +180,77 @@ class CohortEngine:
             time.perf_counter() - t0)
 
     def _execute(self, params, cohort: BucketedCohort, lr: float,
-                 total: int) -> Tuple[object, List[float]]:
+                 total: int, corrupt: Sequence[int] = (),
+                 quarantine: bool = False) -> Tuple[object, List[float]]:
         trace = self.tracer.enabled
+        corrupt = set(corrupt)
         # eq.-(13) weights over the concatenated client axis, bucket
         # order; padding clients hold size 0 and therefore weight 0
         w = np.concatenate([cb.sizes for cb in cohort.buckets])
-        weights = torch.from_numpy(
-            (w / max(1, total)).astype(np.float32)).to(self.device)
+        weights = (w / max(1, total)).astype(np.float32)
         stacked_parts, loss_parts = [], []
-        for cb in cohort.buckets:
+        for bi, cb in enumerate(cohort.buckets):
             t0 = time.perf_counter() if trace else 0.0
             xs, ys, mask = cohort_tensors(cb, self.device)
             stacked, losses = cohort_local_update(self.apply_fn, params,
                                                   xs, ys, mask, lr)
             if trace:
                 self._trace_dispatch(cb, t0)
+            # fault injection: NaN-fill the victims' trained models AFTER
+            # the update (the stack is this round's own) — every RNG draw
+            # is the one the clean run makes
+            for row, m in enumerate(cohort.plans[bi].members):
+                if m in corrupt:
+                    for leaf in tree_leaves(stacked):
+                        leaf[row] = float("nan")
+                    losses[row] = float("nan")
             stacked_parts.append(stacked)
             loss_parts.append(losses)
-        new_params = fedavg_stacked_multi(stacked_parts, weights)
-        return new_params, self._scatter_losses(cohort, loss_parts)
+        dropped: List[int] = []
+        if quarantine:
+            weights, dropped = self._quarantine(cohort, stacked_parts,
+                                                weights)
+            self.last_quarantined = len(dropped)
+        if quarantine and weights.sum() <= 0:
+            # every real update was non-finite: keep the previous model
+            new_params = params
+        else:
+            new_params = fedavg_stacked_multi(
+                stacked_parts, torch.from_numpy(weights).to(self.device))
+        losses = self._scatter_losses(cohort, loss_parts)
+        if dropped:
+            bad = set(dropped)
+            losses = [v for i, v in enumerate(losses) if i not in bad]
+        return new_params, losses
+
+    @staticmethod
+    def _quarantine(cohort: BucketedCohort, stacked_parts: List,
+                    weights: np.ndarray) -> Tuple[np.ndarray, List[int]]:
+        """Drop every non-finite client update from the aggregate.
+
+        One :func:`client_finite_mask` reduction per bucket.  A dropped
+        client's weight becomes 0, and its rows of the stack (this
+        round's own) become 0 too: a weight of 0 alone would still carry
+        its NaN into the weighted sum (0 * NaN = NaN).  The zeroed
+        weights renormalize inside the aggregate (it divides by the
+        weight sum), so the eq.-(13) mass redistributes over the finite
+        survivors.  Returns the adjusted weights and the quarantined
+        clients' canonical positions.
+        """
+        w = np.array(weights, copy=True)
+        dropped: List[int] = []
+        off = 0
+        for cb, stacked, plan in zip(cohort.buckets, stacked_parts,
+                                     cohort.plans):
+            finite = client_finite_mask(stacked).cpu().numpy()
+            for row in np.nonzero(~finite)[0]:
+                for leaf in tree_leaves(stacked):
+                    leaf[row] = 0.0
+                if row < len(plan.members):  # real client (not padding)
+                    w[off + row] = 0.0
+                    dropped.append(int(plan.members[row]))
+            off += cb.xs.shape[0]
+        return w, dropped
 
     @staticmethod
     def _scatter_losses(cohort: BucketedCohort,

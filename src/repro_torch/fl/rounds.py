@@ -8,8 +8,19 @@ round latency.  Produces accuracy-versus-training-time curves.
 
 :class:`RegionTrainer` is one region's FL job, advanced one round at a
 time by :meth:`RegionTrainer.step`; :func:`run_fl` steps a trainer
-``n_rounds`` times.  Both run on ``FLConfig.device`` (``"cuda"`` by
-default) and raise when CUDA is asked for and absent.
+``n_rounds`` times, and the multi-region
+:class:`~repro_torch.sim.engine.SAGINEngine` steps many trainers through
+its event heap and merges their models across regions.  All run on
+``FLConfig.device`` (``"cuda"`` by default) and raise when CUDA is asked
+for and absent.
+
+Region addressing: with a scenario, all of a region's streams — dataset
+sample draw, partition shuffle, orchestrator satellite draws, dynamics
+events — are rooted at ``region_seed(cfg.seed, cfg.region_index)``
+(:func:`repro_torch.sim.engine.region_streams`), so
+``run_fl(FLConfig(scenario=s, region_index=i))`` reproduces engine
+region ``i`` exactly.  The model init alone stays keyed on the global
+``cfg.seed``: every region descends from one broadcast initial model.
 
 Execution modes (``FLConfig.execution``):
 
@@ -33,30 +44,39 @@ reference: at equal seeds and equal initial params, the latencies, wall
 clocks and plan cases are identical to the reference's, and accuracies
 agree up to float reduction-order noise.
 
-Not yet ported (ROADMAP): scenarios and the Walker-Star constellation
-(the ``sim`` slice), the fault hooks and quarantine (resilience), the
-cross-region federation snapshot (engine), serving, and the sharded
-cohort path (multi-GPU).  Their ``FLConfig`` fields keep their names but
-accept only the value this slice supports.
+Fault injection (``repro_torch.resilience``): a trainer with an attached
+``FaultInjector`` absorbs satellite loss and stragglers as realized
+latency, warm-restarts after a trainer crash, and quarantines non-finite
+client updates before the aggregate.
+
+Not yet ported (ROADMAP): serving, the ``no_recompile`` guard (tooling)
+and the sharded cohort path (multi-GPU).  Their ``FLConfig`` fields keep
+their names but accept only the value the port supports.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, TYPE_CHECKING
 
 import numpy as np
 import torch
 
 from ..core import SAGINOrchestrator, build_default_sagin
+from ..core.handover import replan_after_loss
 from ..core.network import SAGIN
 from ..data import FederatedPools, make_dataset, partition
 from ..device import resolve_device
 from ..models.cnn import build_model, model_bits
 from ..obs import resolve_obs
 from ..tree import tree_map
-from .aggregation import fedavg, fedavg_stacked
+from .aggregation import fedavg, fedavg_stacked, tree_all_finite
 from .client import cohort_local_update, evaluate, local_update
 from .cohort_engine import CohortEngine, cohort_tensors
+from .federation import FederationConfig, RegionFedState
+
+if TYPE_CHECKING:  # pragma: no cover - circular-import guard
+    from ..core.constellation import AccessInterval
+    from ..scenarios.registry import Scenario
 
 
 @dataclasses.dataclass
@@ -75,37 +95,39 @@ class FLConfig:
     train_fraction: float = 0.05   # shrink dataset for fast runs
     eval_size: int = 1024
     seed: int = 0
-    use_constellation: bool = False  # only False until the sim slice
-    scenario: Optional[str] = None   # only None until the sim slice
-    region_index: int = 0            # labels this job's trace region
+    use_constellation: bool = False  # True: drive T_i from Walker-Star
+    scenario: Optional[str] = None   # named preset (repro_torch.scenarios)
+    region_index: int = 0            # which scenario region this FL job serves
     execution: str = "auto"        # auto|batched|sequential (module docstring)
     cohort_batch_align: int = 32   # batched mode: bucket-width grid unit
     cohort_bucketing: str = "geometric"  # geometric|global (module docstring)
     cohort_client_align: int = 4   # batched mode: bucket client-count grid
     guard_recompiles: bool = False  # only False until the tooling slice
     cohort_sharding: str = "auto"  # auto|off: one device until multi-GPU
-    federation: Optional[str] = None  # only None until the engine slice
+    # Cross-region federation override for SAGINEngine FL mode: a
+    # FederationConfig replaces the scenario's wholesale; a bare policy
+    # name (e.g. "soft_async") keeps the scenario's cadence/topology/
+    # half-life and swaps only the policy; None defers to the scenario.
+    # Ignored by single-region run_fl (nothing to merge with).
+    federation: Optional["FederationConfig | str"] = None
     # Observability: an ObsConfig, a bare JSONL output path string, or
     # None (disabled — the default, a no-op null tracer).
     obs: Optional[object] = None
     serve: Optional[object] = None  # only None until the serving slice
-    quarantine: Optional[bool] = None  # None|False until resilience
+    # Quarantine non-finite client updates before aggregation (weights
+    # renormalize over the finite survivors).  None (default) arms it
+    # exactly when a fault injector is attached (the chaos path); True/
+    # False force it either way.
+    quarantine: Optional[bool] = None
     device: str = "cuda"           # where the job runs; no CPU fallback
 
     def __post_init__(self):
         waits = [
-            ("use_constellation", self.use_constellation, (False,),
-             "the sim/scenarios slice"),
-            ("scenario", self.scenario, (None,), "the sim/scenarios slice"),
             ("guard_recompiles", self.guard_recompiles, (False,),
              "the tooling slice"),
             ("cohort_sharding", self.cohort_sharding, ("auto", "off"),
              "the multi-GPU slice"),
-            ("federation", self.federation, (None,),
-             "the SAGINEngine slice"),
             ("serve", self.serve, (None,), "the serving CNNBackend slice"),
-            ("quarantine", self.quarantine, (None, False),
-             "the fault-hooks slice"),
         ]
         for name, value, allowed, item in waits:
             if value not in allowed:
@@ -143,6 +165,57 @@ class FLResult:
         return None
 
 
+def _build_orchestrator(cfg: FLConfig, sagin: SAGIN,
+                        scenario: Optional["Scenario"] = None,
+                        intervals: Optional[Sequence["AccessInterval"]] = None
+                        ) -> SAGINOrchestrator:
+    """Orchestrator from the config: scenario preset, bare Walker-Star, or
+    the static satellite list, in that order of precedence.
+
+    With a scenario, coverage windows come from the vectorized
+    multi-region propagation pass and the preset's stochastic dynamics
+    are attached, so the wall clock advances by *realized* latencies.
+    The engine passes ``scenario``/``intervals`` explicitly to share one
+    propagation pass (and to support unregistered ad-hoc scenarios); a
+    standalone job resolves the preset by name and propagates only its
+    own region (NumPy: window boundaries are control-plane state).
+    """
+    if cfg.scenario is not None or scenario is not None:
+        from ..sim.engine import region_streams
+        from ..sim.propagation import access_intervals_multi
+
+        scn = scenario if scenario is not None else _resolve_scenario(cfg)
+        try:
+            region = scn.regions[cfg.region_index]
+        except IndexError:
+            raise ValueError(
+                f"scenario {scn.name!r} has {len(scn.regions)} region(s); "
+                f"region_index={cfg.region_index} is out of range") from None
+        if intervals is None:
+            intervals = access_intervals_multi(
+                scn.build_constellation(), [region], t_end=scn.horizon,
+                dt=scn.dt)[region.name]
+        rng, dynamics = region_streams(cfg.seed, cfg.region_index,
+                                       scn.dynamics)
+        # an explicitly non-default FLConfig.strategy wins; otherwise the
+        # scenario's declared scheme applies (as in SAGINEngine)
+        strategy = (cfg.strategy if cfg.strategy != "adaptive"
+                    else scn.strategy)
+        return SAGINOrchestrator(sagin, intervals=intervals, rng=rng,
+                                 dynamics=dynamics, strategy=strategy)
+    constellation = None
+    if cfg.use_constellation:
+        from ..core import WalkerStar
+        constellation = WalkerStar()
+    return SAGINOrchestrator(sagin, constellation=constellation,
+                             sat_f_seed=cfg.seed, strategy=cfg.strategy)
+
+
+def _resolve_scenario(cfg: FLConfig) -> "Scenario":
+    from ..scenarios import get_scenario
+    return get_scenario(cfg.scenario)
+
+
 def _train_node(apply_fn, params, ds, idx, h, lr, batch_cap, rng, device):
     from ..data.pipeline import batch_for_local_steps
     batches = batch_for_local_steps(ds.x_train, ds.y_train, idx, h, rng,
@@ -178,38 +251,67 @@ def _node_pools(cfg: FLConfig, pools, offline=()) -> List[np.ndarray]:
 
 
 def _round_sequential(cfg: FLConfig, apply_fn, params, ds, node_pools,
-                      total, rng, device):
+                      total, rng, device, corrupt=(), quarantine=False):
     """Reference loop: one local update per node, then ``fedavg``.
-    Returns ``(params, losses)``."""
+
+    Returns ``(params, losses, n_quarantined)``.  ``corrupt`` holds the
+    canonical node positions whose trained models are NaN-filled AFTER
+    training (fault injection; RNG draws untouched); with ``quarantine``
+    any non-finite model is dropped before ``fedavg`` — the weights
+    renormalize over the survivors, and a round whose every update was
+    dropped keeps the previous global model.
+    """
+    corrupt = set(corrupt)
     new_models, weights, losses = [], [], []
-    for idx in node_pools:
+    n_quarantined = 0
+    for pos, idx in enumerate(node_pools):
         out = _train_node(apply_fn, params, ds, idx, cfg.h_local,
                           cfg.lr, cfg.batch_cap, rng, device)
         if out is None:
             continue
         model, loss = out
+        if pos in corrupt:
+            model = tree_map(lambda a: torch.full_like(a, float("nan")),
+                             model)
+            loss = float("nan")
+        if quarantine and not tree_all_finite(model):
+            n_quarantined += 1
+            continue
         new_models.append(model)
         weights.append(len(idx) / total)
         losses.append(loss)
     if new_models:
         params = fedavg(new_models, weights)
-    return params, losses
+    return params, losses, n_quarantined
 
 
 def _round_batched(cfg: FLConfig, apply_fn, params, ds, node_pools,
-                   total, rng, engine: CohortEngine):
+                   total, rng, engine: CohortEngine, corrupt=(),
+                   quarantine=False):
     """Cohort engine: size-bucketed vmapped local updates + one stacked
     eq.-(13) aggregate (the Hopper ``fedavg_agg`` kernel on the card).
     ``cfg.cohort_bucketing="global"`` keeps the single global-``Bmax``
-    layout for comparison.  Returns ``(params, losses)``."""
+    layout for comparison.
+
+    Returns ``(params, losses, n_quarantined)``; ``corrupt`` /
+    ``quarantine`` are the fault-injection and non-finite-update gates
+    of :meth:`~repro_torch.fl.cohort_engine.CohortEngine.round`
+    (geometric bucketing only — the comparison-grade global layout has
+    no quarantine hook).
+    """
     if cfg.cohort_bucketing == "global":
+        if corrupt or quarantine:
+            raise ValueError(
+                "fault injection / quarantine require "
+                "cohort_bucketing='geometric'; the 'global' comparison "
+                "layout has no masking hook")
         from ..data.pipeline import build_cohort
         cohort = build_cohort(ds.x_train, ds.y_train, node_pools,
                               cfg.h_local, rng, max_batch=cfg.batch_cap,
                               pad_clients=cfg.n_devices + cfg.n_air + 1,
                               batch_align=cfg.cohort_batch_align)
         if cohort is None:
-            return params, []
+            return params, [], 0
         xs, ys, mask = cohort_tensors(cohort, engine.device)
         stacked, client_losses = cohort_local_update(apply_fn, params, xs,
                                                      ys, mask, cfg.lr)
@@ -218,15 +320,17 @@ def _round_batched(cfg: FLConfig, apply_fn, params, ds, node_pools,
         params = fedavg_stacked(stacked, weights)
         valid = cohort.sizes > 0
         losses = [float(v) for v in client_losses.cpu().numpy()[valid]]
-        return params, losses
+        return params, losses, 0
     if cfg.cohort_bucketing != "geometric":
         raise ValueError(f"FLConfig.cohort_bucketing must be 'geometric' "
                          f"or 'global', got {cfg.cohort_bucketing!r}")
     cohort = engine.build(ds.x_train, ds.y_train, node_pools, cfg.h_local,
                           rng, max_batch=cfg.batch_cap)
     if cohort is None:
-        return params, []
-    return engine.round(params, cohort, cfg.lr, total)
+        return params, [], 0
+    params, losses = engine.round(params, cohort, cfg.lr, total,
+                                  corrupt=corrupt, quarantine=quarantine)
+    return params, losses, engine.last_quarantined
 
 
 class RegionTrainer:
@@ -239,12 +343,20 @@ class RegionTrainer:
     the reference's order, so at equal seeds the port and the reference
     see the same data, pools, plans and batches.
 
+    The engine passes ``scenario``/``intervals`` so every region shares
+    one propagation pass; standalone use needs only the config.  After a
+    cross-region merge the engine calls :meth:`install_global` to adopt
+    the global model and the post-merge wall clock.
+
     ``params`` (a parameter tree in the port's layout, e.g. from
     :func:`repro_torch.convert.params_from_jax`) replaces the seeded
     initial model; it is copied onto the job's device.
     """
 
-    def __init__(self, cfg: FLConfig, params=None, tracer=None):
+    def __init__(self, cfg: FLConfig,
+                 scenario: Optional["Scenario"] = None,
+                 intervals: Optional[Sequence["AccessInterval"]] = None,
+                 tracer=None, *, params=None):
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.execution = cfg.resolved_execution()
@@ -252,17 +364,38 @@ class RegionTrainer:
             raise ValueError(
                 f"FLConfig.execution must be 'auto', 'batched' or "
                 f"'sequential', got {cfg.execution!r}")
-        self.tracer = tracer if tracer is not None else resolve_obs(cfg.obs)
-        self.region = None
-        self.region_seed = cfg.seed
-        self.rng = np.random.default_rng(cfg.seed)
+        scn = scenario
+        if scn is None and cfg.scenario is not None:
+            scn = _resolve_scenario(cfg)
+        # an explicit tracer (the engine's shared one) wins over the
+        # config; scenario-level obs applies when the config is silent
+        if tracer is None:
+            obs = cfg.obs
+            if obs is None and scn is not None:
+                obs = scn.obs
+            tracer = resolve_obs(obs)
+        self.tracer = tracer
+        if scn is not None:
+            from ..sim.engine import region_seed
+            rseed = region_seed(cfg.seed, cfg.region_index)
+            self.region = (scn.regions[cfg.region_index]
+                           if cfg.region_index < len(scn.regions) else None)
+        else:
+            rseed = cfg.seed
+            self.region = None
+        self.region_seed = rseed
+        self.rng = np.random.default_rng(rseed)
+        # regions share the TASK (class prototypes keyed on the global
+        # seed) but draw disjoint-by-construction sample streams
         self.ds = make_dataset(cfg.dataset, seed=cfg.seed,
                                train_fraction=cfg.train_fraction,
-                               sample_seed=cfg.seed)
+                               sample_seed=rseed)
         parts = partition(self.ds, n_devices=cfg.n_devices, iid=cfg.iid,
-                          alpha=cfg.alpha, seed=cfg.seed)
+                          alpha=cfg.alpha, seed=rseed)
         self.pools = FederatedPools.from_partitions(parts, cfg.n_air)
 
+        # model init is keyed on the GLOBAL seed: every region descends
+        # from the same broadcast initial model (merge prerequisite)
         self.params, self.apply_fn = build_model(
             self.ds.name, cfg.seed, self.device,
             image_shape=self.ds.x_train.shape[1:])
@@ -272,16 +405,21 @@ class RegionTrainer:
         self.sagin = build_default_sagin(
             n_devices=cfg.n_devices, n_air=cfg.n_air, alpha=cfg.alpha,
             q_bits=self.ds.sample_bits, model_bits=model_bits(self.params),
-            rayleigh=cfg.rayleigh, seed=cfg.seed)
+            rayleigh=cfg.rayleigh, seed=rseed)
         # sync actual per-device sizes into the network model
         for k, p in enumerate(parts):
             self.sagin.devices[k].n_samples = p.n_samples
             self.sagin.devices[k].n_sensitive = p.n_sensitive
 
-        self.orch = SAGINOrchestrator(self.sagin, constellation=None,
-                                      sat_f_seed=cfg.seed,
-                                      strategy=cfg.strategy)
-        self._region_name = f"region{cfg.region_index}"
+        self.orch = _build_orchestrator(cfg, self.sagin, scenario=scn,
+                                        intervals=intervals)
+        self._region_name = (self.region.name if self.region is not None
+                             else f"region{cfg.region_index}")
+        # fault injection (repro_torch.resilience): the engine attaches
+        # its shared FaultInjector here; None = clean run, zero overhead
+        self.faults = None
+        # last realized ISL scale, read by the federation snapshot
+        self._last_isl_scale = 1.0
         if self.orch.dynamics is not None:
             self.orch.dynamics.tracer = self.tracer
 
@@ -311,6 +449,32 @@ class RegionTrainer:
         """This region's data mass (constant: offloading conserves it)."""
         return self.pools.total()
 
+    def federation_snapshot(self, index: int) -> RegionFedState:
+        """This region's view for federation-policy planning: clock,
+        data mass, model payload, and the ISL state its dynamics
+        realized in the last completed round.  The trainer emits state;
+        merge SEMANTICS live entirely in ``repro_torch.fl.federation``."""
+        return RegionFedState(
+            index=index,
+            name=self.region.name if self.region is not None else str(index),
+            wall_clock=self.orch.wall_clock,
+            data_mass=float(self.total_samples),
+            model_bits=float(self.sagin.model_bits),
+            z_isl=float(self.sagin.z_isl),
+            isl_scale=self._last_isl_scale,
+            rounds_done=len(self.result.times))
+
+    def install_global(self, params, wall_clock: float):
+        """Adopt the post-merge global model and post-merge clock; the
+        next :meth:`step` resumes local training from the global model.
+
+        The engine hands the SAME merged tree to every recipient (and a
+        one-participant merge hands over a trainer's own params), so
+        each recipient keeps a private copy: no tensor is then shared
+        between two regions, whatever a later round does with it."""
+        self.params = tree_map(lambda t: t.clone(), params)
+        self.orch.wall_clock = wall_clock
+
     def step(self, r: int):
         """Execute FL round ``r``: orchestrate, place data, train every
         data-holding node, aggregate, evaluate.  Returns the round's
@@ -319,9 +483,14 @@ class RegionTrainer:
         cfg = self.cfg
         tr = self.tracer
         if tr.enabled:
+            # context BEFORE orch.step: dynamics samples (and emits
+            # `outage` events) inside it, at this round's start clock
             tr.set_context(region=self._region_name, round=r,
                            t_sim=self.orch.wall_clock)
         rec = self.orch.step(r)
+        specs = (self.faults.at(r, cfg.region_index)
+                 if self.faults is not None else ())
+        crash = self._apply_latency_faults(rec, specs)
         _apply_plan_to_pools(rec.plan, self.pools, self.sagin)
         _sync_sizes(self.pools, self.sagin)
 
@@ -329,14 +498,46 @@ class RegionTrainer:
         total = self.pools.total()
         node_pools = _node_pools(cfg, self.pools,
                                  offline=rec.offline_devices)
-        if self.execution == "batched":
-            self.params, losses = _round_batched(
+        # nan_update: the first ceil(severity) canonical nodes' trained
+        # models are NaN-filled AFTER training (the RNG stream is
+        # untouched, so the chaos trajectory stays seed-reproducible)
+        nan_spec = next((s for s in specs if s.kind == "nan_update"), None)
+        corrupt: Sequence[int] = ()
+        if nan_spec is not None and node_pools:
+            n_bad = min(max(1, int(nan_spec.severity)), len(node_pools))
+            corrupt = tuple(range(n_bad))
+        quarantine = (cfg.quarantine if cfg.quarantine is not None
+                      else self.faults is not None)
+        if crash is not None:
+            # trainer process died mid-round: the round's training is
+            # lost, recovery warm-restarts from the last committed model
+            # (params unchanged) after a restart penalty on the clock
+            penalty = crash.severity * rec.realized_latency
+            self.faults.record_injected("trainer_crash",
+                                        penalty_s=penalty)
+            rec.realized_latency += penalty
+            self.orch.wall_clock += penalty
+            losses, n_quar = [], 0
+            self.faults.record_recovered("trainer_crash",
+                                         penalty_s=penalty)
+        elif self.execution == "batched":
+            self.params, losses, n_quar = _round_batched(
                 cfg, self.apply_fn, self.params, self.ds, node_pools,
-                total, self.rng, self.cohort_engine)
+                total, self.rng, self.cohort_engine, corrupt=corrupt,
+                quarantine=quarantine)
         else:
-            self.params, losses = _round_sequential(
+            self.params, losses, n_quar = _round_sequential(
                 cfg, self.apply_fn, self.params, self.ds, node_pools,
-                total, self.rng, self.device)
+                total, self.rng, self.device, corrupt=corrupt,
+                quarantine=quarantine)
+        if corrupt and self.faults is not None:
+            self.faults.record_injected("nan_update",
+                                        n_corrupt=len(corrupt))
+            if quarantine and n_quar >= len(corrupt):
+                self.faults.record_recovered("nan_update",
+                                             quarantined=n_quar)
+        if n_quar:
+            tr.metrics.counter("quarantine.updates").inc(n_quar)
 
         _, acc = evaluate(self.apply_fn, self.params, self.x_eval,
                           self.y_eval)
@@ -354,9 +555,50 @@ class RegionTrainer:
         res.layer_portions.append({
             "ground": n_ground / total, "air": n_air / total,
             "space": len(self.pools.sat) / total})
+        self._last_isl_scale = (float(rec.events.isl_scale)
+                                if rec.events is not None else 1.0)
         if tr.enabled:
             self._emit_round_spans(r, rec, res)
         return rec
+
+    def _apply_latency_faults(self, rec, specs):
+        """Apply this round's latency-shaped faults to the round record
+        and the wall clock; returns the ``trainer_crash`` spec (handled
+        at the training dispatch) or ``None``.
+
+        ``sat_loss`` kills the serving satellite at
+        ``severity * tau_S`` into the space schedule and re-plans onto
+        the successor chain
+        (:func:`repro_torch.core.handover.replan_after_loss` — the
+        unplanned mid-window handover); ``straggler`` stretches the
+        realized round latency by ``severity``x.  Both are absorbed as
+        extra realized latency — the round still completes, which IS the
+        recovery."""
+        crash = None
+        for spec in specs:
+            if spec.kind == "sat_loss":
+                loss_t = spec.severity * rec.schedule.total_latency
+                recovered, _ = replan_after_loss(rec.schedule, loss_t,
+                                                 self.sagin)
+                delta = max(0.0, recovered.total_latency
+                            - rec.schedule.total_latency)
+                self.faults.record_injected("sat_loss", loss_time=loss_t,
+                                            delta_s=delta)
+                rec.schedule = recovered
+                rec.realized_latency += delta
+                self.orch.wall_clock += delta
+                self.faults.record_recovered("sat_loss", delta_s=delta)
+            elif spec.kind == "straggler":
+                delta = max(0.0, (spec.severity - 1.0)
+                            * rec.realized_latency)
+                self.faults.record_injected("straggler",
+                                            slowdown=spec.severity)
+                rec.realized_latency += delta
+                self.orch.wall_clock += delta
+                self.faults.record_recovered("straggler", delta_s=delta)
+            elif spec.kind == "trainer_crash":
+                crash = spec
+        return crash
 
     def _emit_round_spans(self, r: int, rec, res: FLResult):
         """Trace one completed round: offload transfer, handover legs,
@@ -408,16 +650,17 @@ class RegionTrainer:
             rec.realized_latency - rec.latency)
 
 
-def run_fl(cfg: FLConfig, params=None, tracer=None) -> FLResult:
+def run_fl(cfg: FLConfig, tracer=None, *, params=None) -> FLResult:
     """Single-region FL job: a :class:`RegionTrainer` stepped to the end.
 
-    ``params`` replaces the seeded initial model (see
-    :class:`RegionTrainer`).  ``tracer`` (a
-    :class:`repro_torch.obs.Tracer`) overrides ``cfg.obs``; when this
-    function owns the tracer it also flushes the trace at the end.
+    ``tracer`` (a :class:`repro_torch.obs.Tracer`) overrides ``cfg.obs``
+    — ``run_fl_all_regions`` shares one tracer across regions this way;
+    when this function owns the tracer it also flushes the trace at the
+    end.  ``params`` replaces the seeded initial model (see
+    :class:`RegionTrainer`).
     """
     own_tracer = tracer is None
-    trainer = RegionTrainer(cfg, params=params, tracer=tracer)
+    trainer = RegionTrainer(cfg, tracer=tracer, params=params)
     for r in range(cfg.n_rounds):
         trainer.step(r)
     if own_tracer:

@@ -126,3 +126,58 @@ def test_evaluate_matches_reference(model):
                                 torch.from_numpy(ys).long())
     np.testing.assert_allclose(float(loss), float(want_loss), atol=1e-5)
     assert float(acc) == float(want_acc)
+
+
+def _stack_models(np_params, n):
+    """``n`` models around ``np_params`` (leading axis n), as numpy."""
+    rng = np.random.default_rng(n)
+    return jax.tree_util.tree_map(
+        lambda a: np.stack([a + 0.01 * rng.standard_normal(a.shape).astype(
+            np.float32) for _ in range(n)]), np_params)
+
+
+def _port_stack(stacked, n):
+    """A numpy stack of reference models as the port's stacked tree
+    (each model converted, then stacked: conv kernels become OIHW)."""
+    models = [params_from_jax(jax.tree_util.tree_map(lambda a: a[i],
+                                                     stacked), "cpu")
+              for i in range(n)]
+    return tree_map(lambda *ts: torch.stack(ts), *models)
+
+
+def test_vmapped_local_update_matches_reference(model):
+    """Three clients, each from its own params and learning rate."""
+    c = 3
+    stacked = _stack_models(model, c)
+    xs, ys = _batches((c, H, B), seed=4)
+    lrs = np.array([0.05, 0.01, 0.1], np.float32)
+    want, want_loss = jax_client.vmapped_local_update(
+        jax_cnn.apply_mnist_cnn, _jax(stacked), jnp.asarray(xs),
+        jnp.asarray(ys), jnp.asarray(lrs))
+    got, loss = client.vmapped_local_update(
+        cnn.apply_mnist_cnn, _port_stack(stacked, c),
+        torch.from_numpy(xs), torch.from_numpy(ys).long(),
+        torch.from_numpy(lrs))
+    assert loss.shape == (c,)
+    # losses of 20-200 on these random batches: float32 sums, relative
+    np.testing.assert_allclose(loss.numpy(), np.asarray(want_loss),
+                               rtol=1e-5, atol=1e-5)
+    for i in range(c):
+        _assert_params_close(tree_map(lambda t: t[i], got),
+                             jax.tree_util.tree_map(lambda a: a[i], want))
+
+
+def test_stacked_evaluate_matches_reference(model):
+    c = 3
+    stacked = _stack_models(model, c)
+    xs, ys = _batches((64,), seed=5)
+    want_loss, want_acc = jax_client.stacked_evaluate(
+        jax_cnn.apply_mnist_cnn, _jax(stacked), jnp.asarray(xs),
+        jnp.asarray(ys))
+    loss, acc = client.stacked_evaluate(
+        cnn.apply_mnist_cnn, _port_stack(stacked, c),
+        torch.from_numpy(xs), torch.from_numpy(ys).long())
+    assert loss.shape == acc.shape == (c,)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(want_loss),
+                               atol=1e-5)
+    np.testing.assert_allclose(acc.numpy(), np.asarray(want_acc), atol=0)

@@ -33,7 +33,11 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     assert "repro_torch.kernels.fedavg_agg.kernel" in mods
     for name in ("kernels.flash_attention.kernel", "kernels.wkv6.kernel",
                  "models.layers", "models.transformer", "configs.registry",
-                 "launch.train", "launch.serve", "serve.backends"):
+                 "launch.train", "launch.serve", "serve.backends",
+                 "sim.propagation", "sim.dynamics", "sim.engine",
+                 "scenarios.registry", "resilience.faults",
+                 "serve.workload", "fl.federation.base",
+                 "fl.federation.policies", "fl.baselines"):
         assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

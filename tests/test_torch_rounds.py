@@ -4,7 +4,9 @@ The reference runs its sequential loop; the port runs both of its modes
 on the CPU from the reference's initial model, carried across with
 ``convert.params_from_jax``.  The NumPy control plane is the same code
 in both packages, so plan cases are equal and latencies and wall clocks
-agree to 1e-12; accuracies and losses agree within 1e-3.
+agree to 1e-12; accuracies and losses agree within 1e-3.  The same
+holds with the Walker-Star constellation driving the coverage windows
+(``scenario="paper"``, ``use_constellation=True``).
 """
 import dataclasses
 
@@ -17,6 +19,7 @@ from repro.fl import FLConfig as JaxFLConfig, run_fl as jax_run_fl
 from repro.models import cnn as jax_cnn
 from repro_torch.convert import params_from_jax
 from repro_torch.fl import FLConfig, RegionTrainer, run_fl
+from repro_torch.obs import ObsConfig, Tracer
 
 COMMON = dict(dataset="mnist", n_rounds=2, train_fraction=0.005,
               n_devices=4, n_air=1, h_local=2, eval_size=64, seed=3)
@@ -35,6 +38,10 @@ def test_run_fl_matches_reference(reference, execution):
     want, np_params = reference
     got = run_fl(FLConfig(execution=execution, device="cpu", **COMMON),
                  params=params_from_jax(np_params, "cpu"))
+    _assert_same_run(got, want)
+
+
+def _assert_same_run(got, want):
     assert got.cases == want.cases
     np.testing.assert_allclose(got.latencies, want.latencies, rtol=1e-12)
     np.testing.assert_allclose(got.times, want.times, rtol=1e-12)
@@ -67,14 +74,49 @@ def test_cuda_by_default_and_no_fallback():
         RegionTrainer(FLConfig(**COMMON))
 
 
+@pytest.mark.parametrize("constellation", [
+    dict(scenario="paper"), dict(use_constellation=True)])
+@pytest.mark.parametrize("execution", ["sequential", "batched"])
+def test_constellation_runs_match_reference(reference, constellation,
+                                            execution):
+    """Coverage windows from the 80-satellite Walker-Star (the paper
+    preset over 48 h, or the bare constellation over 6 h) set each
+    round's T_i in both packages alike."""
+    _, np_params = reference
+    want = jax_run_fl(JaxFLConfig(execution="sequential", **constellation,
+                                  **COMMON))
+    got = run_fl(FLConfig(execution=execution, device="cpu",
+                          **constellation, **COMMON),
+                 params=params_from_jax(np_params, "cpu"))
+    _assert_same_run(got, want)
+
+
+def test_run_fl_hands_a_positional_tracer_to_the_trainer():
+    """``run_fl(cfg, tracer)`` and ``RegionTrainer(cfg, scenario,
+    intervals, tracer)`` take the reference's positional order."""
+    tracer = Tracer(ObsConfig(path=None))
+    res = run_fl(FLConfig(device="cpu", **dict(COMMON, n_rounds=1)), tracer)
+    assert [s.kind for s in tracer.spans].count("round") == 1
+    assert len(res.accuracies) == 1
+    tr = RegionTrainer(FLConfig(device="cpu", **COMMON), None, None, tracer)
+    assert tr.tracer is tracer
+    with pytest.raises(TypeError):
+        run_fl(FLConfig(device="cpu", **COMMON), None, None)
+
+
 @pytest.mark.parametrize("field,value", [
-    ("use_constellation", True), ("scenario", "paper"),
     ("guard_recompiles", True), ("cohort_sharding", "mesh"),
-    ("federation", "soft_async"), ("serve", object()),
-    ("quarantine", True)])
+    ("serve", object())])
 def test_fields_not_yet_ported_raise(field, value):
     with pytest.raises(ValueError, match="ROADMAP"):
         FLConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("use_constellation", True), ("scenario", "paper"),
+    ("federation", "soft_async"), ("quarantine", True)])
+def test_fields_of_the_sim_slice_accepted(field, value):
+    assert getattr(FLConfig(**{field: value}), field) == value
 
 
 def test_config_fields_match_reference():
