@@ -55,23 +55,38 @@ Phases, each printed as one JSON object on its own line:
 10. ``engine_chaos``: ``SAGINEngine("chaos", fl=FLConfig(n_devices=12,
     n_air=2)).run(6)``: every fault kind injected and recovered,
     quarantined updates counted, finite global params.
-11. ``transformer_prefill``: full-width ``llama3.2-3b`` (random bf16
+11. ``engine_resume``: phase 9's ``multi_region`` configuration, ``run(4)``
+    against ``run(2, final_merge=False)`` + ``save_engine`` + a fresh
+    engine's ``restore_engine`` + ``run(2)``, deterministic algorithms
+    on: cases, latencies, clocks and merges identical, params identical
+    or within 1e-4; save and restore walls, checkpoint bytes, launches.
+12. ``serve_gateway``: ``ServeGateway`` sessions on the card, each beside
+    the same session on the CPU with the card's params carried over:
+    the resumed ``multi_region`` engine (default ``ServeConfig``), and
+    ``flash_crowd`` (3 regions) and ``degraded_links`` (1 region), each
+    trained 1 round, under ``min_rt`` and ``static_nearest``: identical
+    routes and simulated latencies, served accuracy within 4/served,
+    ``min_rt``'s p99 below ``static_nearest``'s under
+    ``degraded_links``; ``qps_wall``, the median batch wall and the
+    card's busy share of a session; ``python -m repro_torch.obs report``
+    on the resumed engine's trace (serving and resilience sections).
+13. ``transformer_prefill``: full-width ``llama3.2-3b`` (random bf16
     weights from a seed), ``make_prefill_step`` on B = 4 sequences of
     2048 tokens: one ``flash_attention`` launch per layer (28), finite
     logits, wall time, peak memory and the kernel's share of the step
     under ``torch.profiler``.
-12. ``transformer_decode``: the same model behind ``TransformerBackend``
+14. ``transformer_decode``: the same model behind ``TransformerBackend``
     (seq_len 2048) answering batches of 8 requests: per-token latency.
-13. ``decode_vs_prefill``: the same model in float32 (TF32 off), B = 1:
+15. ``decode_vs_prefill``: the same model in float32 (TF32 off), B = 1:
     the prefill's logits at all 256 positions (through the kernel)
     against 256 plain ``serve_step``s; then full-width ``rwkv6-1.6b``
     the same way over 64 positions (prefill through ``wkv6``, decode
     through the plain ``wkv_step``).
-14. ``rwkv6``: full-width ``rwkv6-1.6b`` in bf16, prefill of B = 4 x 2048
+16. ``rwkv6``: full-width ``rwkv6-1.6b`` in bf16, prefill of B = 4 x 2048
     tokens (one ``wkv6`` launch per layer, 24) and decode steps; the
     smallest decay ``w`` the prefill feeds the kernel, and each layer's
     0.1 % quantile of it.
-15. ``flash_kernel`` / ``wkv_kernel``: each kernel against its plain
+17. ``flash_kernel`` / ``wkv_kernel``: each kernel against its plain
     version on the card at the shapes the main paths gave it (in their
     bf16 and in f32) and over the reference's sweep, f32 and bf16, with
     decays from [0.7, 0.999] and (wkv) also from [0, 0.999] with exact
@@ -81,8 +96,8 @@ Phases, each printed as one JSON object on its own line:
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after; ``fedavg_agg``'s count in the kernel
-line sums its paths (phases 2, 8 and 9).  Then a ``{"kernels": [...]}``
-line and, last, the device line.  Any failed phase, a missing CUDA
+line sums its paths (phases 2, 8, 9, 11 and 12).  Then a
+``{"kernels": [...]}`` line and, last, the device line.  Any failed phase, a missing CUDA
 device, or a directory without the rest of the repository gives a
 non-zero exit and no result line.
 """
@@ -90,10 +105,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -816,6 +833,254 @@ def phase_engine_chaos(launchers):
                            "recovered, or the global params are not finite")
 
 
+def _curves(eng):
+    """Every region's result curves, NaN loss sentinels by repr."""
+    return {name: [r.times, r.accuracies, [repr(x) for x in r.losses],
+                   r.latencies, r.cases, r.participated]
+            for name, r in eng.fl_results.items()}
+
+
+def _max_param_err(a, b):
+    """Largest difference between two engines' region and global params
+    (on the host; 0.0 where every leaf is equal)."""
+    from repro_torch.tree import tree_leaves
+    trees = [(x.params, y.params) for x, y in zip(a.trainers, b.trainers)]
+    trees.append((a.global_params, b.global_params))
+    return max(float((x.cpu() - y.cpu()).abs().max())
+               for p, q in trees
+               for x, y in zip(tree_leaves(p), tree_leaves(q)))
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def _engine_launches(*engines):
+    """``fedavg_agg`` launches the runs of ``engines`` should have made:
+    one a trained region-round and one a merge of more than one region."""
+    return sum(sum(sum(t.result.participated) for t in e.trainers)
+               + sum(len(m.participants) > 1 for m in e.merges)
+               for e in engines)
+
+
+def phase_engine_resume(launchers, tmp):
+    """``SAGINEngine("multi_region", fl=FLConfig(n_devices=20, n_air=2),
+    backend="torch")`` on the card: ``run(4)`` against ``run(2,
+    final_merge=False)`` + ``save_engine`` + a fresh engine's
+    ``restore_engine`` + ``run(2)``, with deterministic algorithms on
+    for this phase.  Cases, latencies, wall clocks and merges must be
+    identical; params identical, or (where the card is not
+    deterministic) within 1e-4 with accuracies within 4/eval_size.
+    Host walls of the save and the restore, the checkpoint's bytes, and
+    the ``fedavg_agg`` launches of the three runs.  Returns the restored
+    engine (its trace at ``tmp/serve.jsonl``) and the launches."""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint import restore_engine, save_engine
+    from repro_torch.fl import FLConfig
+    from repro_torch.obs import ObsConfig
+    from repro_torch.sim import SAGINEngine
+    fl = FLConfig(n_devices=20, n_air=2)
+
+    def build(**kw):
+        return SAGINEngine("multi_region", fl=dataclasses.replace(fl, **kw),
+                           backend="torch")
+
+    ckpt = str(Path(tmp) / "ckpt")
+    b = torch.backends.cudnn
+    saved = (b.deterministic, b.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    b.deterministic, b.benchmark = True, False
+    try:
+        set_counts(launchers)
+        full = build()
+        full.run(4)
+        seg = build()
+        seg.run(2, final_merge=False)
+        _, save_s = _wall(lambda: save_engine(seg, ckpt))
+        res = build(obs=ObsConfig(path=str(Path(tmp) / "serve.jsonl")))
+        _, restore_s = _wall(lambda: restore_engine(res, ckpt))
+        res.run(2)
+        torch.cuda.synchronize()
+        launches = read_counts(launchers)["fedavg_agg"]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        b.deterministic, b.benchmark = saved
+    # the resumed engine's curves and merges hold the segment's too
+    expected = _engine_launches(full, res)
+    err = _max_param_err(full, res)
+    eval_size = fl.eval_size
+    curves, rcurves = _curves(full), _curves(res)
+    # cases, latencies, clocks and participation always; accuracies and
+    # losses only where the params are equal
+    plane = all(curves[n][i] == rcurves[n][i] for n in curves
+                for i in (0, 3, 4, 5))
+    acc_err = max(abs(x - y) for n in curves
+                  for x, y in zip(curves[n][1], rcurves[n][1]))
+    merges_equal = ([_merge_fields(m) for m in full.merges]
+                    == [_merge_fields(m) for m in res.merges])
+    identical = err == 0.0 and curves == rcurves and full.merges == res.merges
+    ok = (plane and merges_equal and len(res.merges) == 2
+          and launches == expected and err <= 1e-4
+          and acc_err <= 4 / eval_size)
+    emit({"phase": "engine_resume", "ok": ok, "scenario": "multi_region",
+          "n_devices": fl.n_devices, "n_air": fl.n_air,
+          "execution": fl.resolved_execution(),
+          "deterministic_algorithms": True,
+          "bit_identical": identical, "param_max_abs_err": err,
+          "param_tolerance": 1e-4, "max_accuracy_err": acc_err,
+          "cases_latencies_clocks_equal": plane,
+          "merges_equal": merges_equal,
+          "save_s": save_s, "restore_s": restore_s,
+          "checkpoint_bytes": _dir_bytes(ckpt),
+          "fedavg_agg_launches": launches, "expected_launches": expected,
+          "merges": [_merge_fields(m) for m in res.merges]})
+    if not ok:
+        raise RuntimeError("engine_resume: the resumed run differs from the "
+                           "uninterrupted one, or fedavg_agg launches != "
+                           "region-rounds + merges")
+    return res, launches
+
+
+def _cpu_twin(engine, tmp, name):
+    """A CPU engine of ``engine``'s scenario holding its state (params
+    from the card), through a checkpoint.  The satellites of the last
+    round (their CPU frequencies, which the gateway prices service times
+    from) are not in a checkpoint, as in the reference's: each round
+    draws them anew at its start.  So the twin copies them."""
+    import copy
+    import dataclasses
+    from repro_torch.checkpoint import restore_engine, save_engine
+    from repro_torch.sim import SAGINEngine
+    path = str(Path(tmp) / name)
+    save_engine(engine, path)
+    cpu = SAGINEngine(engine.scenario.name, fl=dataclasses.replace(
+        engine.fl_config, device="cpu", obs=None))
+    restore_engine(cpu, path)
+    for t, c in zip(engine.trainers, cpu.trainers):
+        c.sagin.satellites = copy.deepcopy(t.sagin.satellites)
+    return cpu
+
+
+def _trained(launchers, name):
+    """``name`` at its preset's population, trained 1 round on the card
+    (propagation there too); its ``fedavg_agg`` launches and the count
+    its region-rounds and merges call for."""
+    from repro_torch.fl import FLConfig
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.sim import SAGINEngine
+    scn = get_scenario(name)
+    eng = SAGINEngine(scn, fl=FLConfig(n_devices=scn.n_devices,
+                                       n_air=scn.n_air), backend="torch")
+    set_counts(launchers)
+    eng.run(1)
+    return eng, read_counts(launchers)["fedavg_agg"], _engine_launches(eng)
+
+
+def _session(engine, cpu, serve, duration, t0):
+    """One gateway session on the card and the same on the CPU: the
+    card's report and gateway, and how far the two agree."""
+    from repro_torch.serve import ServeGateway
+    gw, gw_cpu = (ServeGateway(engine, serve=serve),
+                  ServeGateway(cpu, serve=serve))
+    rep, rep_cpu = gw.run(duration, t0=t0), gw_cpu.run(duration, t0=t0)
+    same = (rep.requests == rep_cpu.requests
+            and rep.count_by_target == rep_cpu.count_by_target
+            and [(r.rid, r.target, r.latency, r.wait) for r in gw.completed]
+            == [(r.rid, r.target, r.latency, r.wait)
+                for r in gw_cpu.completed])
+    acc_err = abs(rep.served_accuracy - rep_cpu.served_accuracy)
+    ok = (same and rep.served == rep.requests > 0
+          and acc_err <= 4 / rep.served)
+    return rep, {"ok": ok, "router": rep.router, "requests": rep.requests,
+                 "served": rep.served, "batches": rep.batches,
+                 "qps_sim": rep.qps_sim, "qps_wall": rep.qps_wall,
+                 "qps_wall_cpu": rep_cpu.qps_wall,
+                 "latency_p50": rep.latency_p50,
+                 "latency_p99": rep.latency_p99,
+                 "wait_mean": rep.wait_mean,
+                 "served_accuracy": rep.served_accuracy,
+                 "served_accuracy_cpu": rep_cpu.served_accuracy,
+                 "accuracy_tolerance": 4 / rep.served,
+                 "count_by_target": rep.count_by_target,
+                 "routes_latencies_equal_cpu": same}
+
+
+def phase_serve_gateway(launchers, resumed, tmp):
+    """``ServeGateway`` on the card, each session beside the same session
+    on the CPU with the card's params carried over (through a
+    checkpoint): identical requests, targets and simulated latencies,
+    served accuracy within 4/served.  Sessions: the resumed
+    ``multi_region`` engine under its default ``ServeConfig`` (600 s);
+    ``flash_crowd`` (3 regions, 12 devices, 2 air nodes, trained 1
+    round on the card) under ``min_rt`` and ``static_nearest`` from
+    ``t0 = 0`` (600 s); ``degraded_links`` (the paper's population,
+    trained 1 round) under both routers at 2 requests/s (900 s from
+    ``t0 = 0``), where ``min_rt``'s p99 must beat ``static_nearest``'s:
+    the setup of the reference's gate in ``benchmarks/serve.py``.  The
+    resumed engine's trace (training, ``resume``, serving) through
+    ``python -m repro_torch.obs report``: exit 0, serving and resilience
+    sections.  ``qps_wall`` and each ``serve_batch``'s ``dur_wall`` are
+    the gateway's host clocks around ``predict``, which ends in a copy
+    to the host; one more ``flash_crowd`` session under
+    ``torch.profiler`` gives the card's busy share."""
+    import dataclasses
+    import os
+    from repro_torch.serve import ServeConfig, ServeGateway
+    out = {}
+    set_counts(launchers)
+    _, out["multi_region"] = _session(resumed, _cpu_twin(resumed, tmp, "mr"),
+                                      None, 600.0, None)
+    serve_launches = read_counts(launchers)["fedavg_agg"]
+    batch_walls = [s.dur_wall for s in resumed.tracer.spans
+                   if s.kind == "serve_batch"]
+    out["multi_region"]["serve_batch_dur_wall_ms_median"] = (
+        statistics.median(batch_walls) * 1e3)
+    out["multi_region"]["serve_batches_traced"] = len(batch_walls)
+
+    launches, expected, p99 = 0, 0, {}
+    for name, duration in (("flash_crowd", 600.0), ("degraded_links", 900.0)):
+        eng, n, want = _trained(launchers, name)
+        launches, expected = launches + n, expected + want
+        twin = _cpu_twin(eng, tmp, name)
+        base = eng.scenario.serve or ServeConfig(base_rate=2.0)
+        for router in ("min_rt", "static_nearest"):
+            rep, out[f"{name}/{router}"] = _session(
+                eng, twin, dataclasses.replace(base, router=router),
+                duration, 0.0)
+            p99[name, router] = rep.latency_p99
+        if name == "flash_crowd":
+            gw = ServeGateway(eng, serve=base)
+            prof_wall, by_name = _profile(lambda: gw.run(duration, t0=0.0))
+    gate = (p99["degraded_links", "min_rt"]
+            < p99["degraded_links", "static_nearest"])
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", "report",
+         str(Path(tmp) / "serve.jsonl")], capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    report_ok = (proc.returncode == 0 and "serving (" in proc.stdout
+                 and "1 resume(s)" in proc.stdout)
+    ok = (all(v["ok"] for v in out.values()) and report_ok and gate
+          and launches == expected and serve_launches == 0)
+    emit({"phase": "serve_gateway", "ok": ok, **out,
+          "degraded_links_min_rt_p99_below_static_nearest": gate,
+          "flash_crowd_min_rt_p99_below_static_nearest":
+              p99["flash_crowd", "min_rt"]
+              < p99["flash_crowd", "static_nearest"],
+          "training_fedavg_agg_launches": launches,
+          "training_expected_launches": expected,
+          "serving_fedavg_agg_launches": serve_launches,
+          "report_exit_code": proc.returncode, "report_sections_ok": report_ok,
+          "report_tail": proc.stdout[-1200:],
+          "profiled_flash_crowd_session": _share(by_name, prof_wall)})
+    if not ok:
+        raise RuntimeError("serve_gateway: card and CPU sessions differ, "
+                           "min_rt's p99 is not below static_nearest's "
+                           "under degraded_links, or the trace report "
+                           "failed")
+    return launches
+
+
 def _free() -> None:
     """Return the cached blocks of the tensors dropped so far."""
     import gc
@@ -1300,6 +1565,10 @@ def _kernel_line(name, source, replaces, launches, case):
 
 
 def main() -> int:
+    # cuBLAS reads its workspace setting once, when it starts; a fixed
+    # workspace is what deterministic algorithms need (engine_resume),
+    # and 32 MiB is the size PyTorch picks on Hopper anyway
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -1333,6 +1602,12 @@ def main() -> int:
         launches += phase_scenario_paper(launchers)
         launches += phase_engine_fl(launchers)
         phase_engine_chaos(launchers)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            resumed, resume_launches = phase_engine_resume(launchers, tmp)
+            launches += resume_launches
+            launches += phase_serve_gateway(launchers, resumed, tmp)
+            del resumed
+            _free()
         fa_launches, prefill_shapes = phase_transformer_prefill(launchers)
         phase_transformer_decode(launchers)
         f32_shapes = phase_decode_vs_prefill(launchers)

@@ -49,9 +49,9 @@ Fault injection (``repro_torch.resilience``): a trainer with an attached
 latency, warm-restarts after a trainer crash, and quarantines non-finite
 client updates before the aggregate.
 
-Not yet ported (ROADMAP): serving, the ``no_recompile`` guard (tooling)
-and the sharded cohort path (multi-GPU).  Their ``FLConfig`` fields keep
-their names but accept only the value the port supports.
+Not yet ported (ROADMAP): the ``no_recompile`` guard (tooling) and the
+sharded cohort path (multi-GPU).  Their ``FLConfig`` fields keep their
+names but accept only the value the port supports.
 """
 from __future__ import annotations
 
@@ -77,6 +77,7 @@ from .federation import FederationConfig, RegionFedState
 if TYPE_CHECKING:  # pragma: no cover - circular-import guard
     from ..core.constellation import AccessInterval
     from ..scenarios.registry import Scenario
+    from ..serve.workload import ServeConfig
 
 
 @dataclasses.dataclass
@@ -113,7 +114,12 @@ class FLConfig:
     # Observability: an ObsConfig, a bare JSONL output path string, or
     # None (disabled — the default, a no-op null tracer).
     obs: Optional[object] = None
-    serve: Optional[object] = None  # only None until the serving slice
+    # Serving-gateway wiring (repro_torch.serve): a ServeConfig shaping
+    # the request workload / router / batching a ServeGateway attached
+    # to this run uses.  Wins over Scenario.serve; None defers to the
+    # scenario (and ultimately to ServeConfig() defaults).  Training
+    # itself never reads this — serving is strictly read-only.
+    serve: Optional["ServeConfig"] = None
     # Quarantine non-finite client updates before aggregation (weights
     # renormalize over the finite survivors).  None (default) arms it
     # exactly when a fault injector is attached (the chaos path); True/
@@ -127,7 +133,6 @@ class FLConfig:
              "the tooling slice"),
             ("cohort_sharding", self.cohort_sharding, ("auto", "off"),
              "the multi-GPU slice"),
-            ("serve", self.serve, (None,), "the serving CNNBackend slice"),
         ]
         for name, value, allowed, item in waits:
             if value not in allowed:
@@ -135,6 +140,9 @@ class FLConfig:
                     f"FLConfig.{name}={value!r} is not supported by "
                     f"repro_torch yet (allowed: {allowed}); it comes with "
                     f"{item} (ROADMAP)")
+        if self.serve is not None:
+            from ..serve.gateway import resolve_serve
+            resolve_serve(self.serve)   # raises unless a ServeConfig
 
     def resolved_execution(self) -> str:
         if self.execution == "auto":

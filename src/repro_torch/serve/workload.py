@@ -46,14 +46,13 @@ class ServeConfig:
     ``base_rate`` is requests/s per region at nominal population and
     mid-curve load.  ``burst_markov=(p_enter, p_exit)`` arms the
     Gilbert–Elliott burst chain (per ``dt`` slot); ``None`` keeps
-    arrivals burst-free.  ``router`` names a registered policy of the
-    serving router (the serving slice, ROADMAP).
-    ``batch_align``/``max_batch`` control the gateway's geometric
-    request batching (compile-once shapes); ``max_batch=1`` degenerates
-    to per-request dispatch (the benchmark baseline).  ``link_refresh``
-    is how often (simulated seconds) the gateway re-samples the
-    serving-plane link state from the scenario's
-    :class:`~repro_torch.sim.dynamics.DynamicsConfig`.
+    arrivals burst-free.  ``router`` names a registered policy from
+    :mod:`repro_torch.serve.router`.  ``batch_align``/``max_batch``
+    control the gateway's geometric request batching (compile-once
+    shapes); ``max_batch=1`` degenerates to per-request dispatch (the
+    benchmark baseline).  ``link_refresh`` is how often (simulated
+    seconds) the gateway re-samples the serving-plane link state from
+    the scenario's :class:`~repro_torch.sim.dynamics.DynamicsConfig`.
     """
     base_rate: float = 2.0
     diurnal_amplitude: float = 0.5

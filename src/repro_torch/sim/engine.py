@@ -221,7 +221,7 @@ class SAGINEngine:
 
         ``run`` CONTINUES from wherever the engine stands (fresh
         engines stand at round 0), so ``run(5); run(5)`` (and an engine
-        checkpoint/resume, once the checkpoint slice lands) replays
+        checkpoint/resume through :mod:`repro_torch.checkpoint`) replays
         ``run(10)`` exactly — provided the first segment passes
         ``final_merge=False`` to suppress the forced off-cadence merge
         at its own last round (an artifact of treating the segment end

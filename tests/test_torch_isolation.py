@@ -37,7 +37,10 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                  "sim.propagation", "sim.dynamics", "sim.engine",
                  "scenarios.registry", "resilience.faults",
                  "serve.workload", "fl.federation.base",
-                 "fl.federation.policies", "fl.baselines"):
+                 "fl.federation.policies", "fl.baselines",
+                 "serve.router", "serve.gateway", "serve.__main__",
+                 "obs.report", "obs.__main__", "checkpoint.ckpt",
+                 "checkpoint.engine"):
         assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

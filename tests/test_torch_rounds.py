@@ -20,6 +20,7 @@ from repro.models import cnn as jax_cnn
 from repro_torch.convert import params_from_jax
 from repro_torch.fl import FLConfig, RegionTrainer, run_fl
 from repro_torch.obs import ObsConfig, Tracer
+from repro_torch.serve import ServeConfig
 
 COMMON = dict(dataset="mnist", n_rounds=2, train_fraction=0.005,
               n_devices=4, n_air=1, h_local=2, eval_size=64, seed=3)
@@ -105,11 +106,18 @@ def test_run_fl_hands_a_positional_tracer_to_the_trainer():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("guard_recompiles", True), ("cohort_sharding", "mesh"),
-    ("serve", object())])
+    ("guard_recompiles", True), ("cohort_sharding", "mesh")])
 def test_fields_not_yet_ported_raise(field, value):
     with pytest.raises(ValueError, match="ROADMAP"):
         FLConfig(**{field: value})
+
+
+def test_serve_field_takes_none_or_a_serve_config():
+    assert FLConfig(device="cpu").serve is None
+    cfg = ServeConfig(base_rate=3.0)
+    assert FLConfig(serve=cfg, device="cpu").serve is cfg
+    with pytest.raises(TypeError, match="ServeConfig"):
+        FLConfig(serve="min_rt")
 
 
 @pytest.mark.parametrize("field,value", [
@@ -124,3 +132,33 @@ def test_config_fields_match_reference():
     ref = {f.name for f in dataclasses.fields(JaxFLConfig)}
     port = {f.name for f in dataclasses.fields(FLConfig)}
     assert ref <= port and port - ref == {"device"}
+
+
+@pytest.mark.parametrize("variant", [
+    dict(execution="batched", cohort_bucketing="global"),
+    dict(iid=False), dict(dataset="fmnist"), dict(rayleigh=False),
+    dict(strategy="none"), dict(strategy="air_ground"),
+    dict(strategy="ground_space"), dict(strategy="static"),
+    dict(strategy="proportional"),
+], ids=["global_buckets", "non_iid", "fmnist", "no_rayleigh", "none",
+        "air_ground", "ground_space", "static", "proportional"])
+def test_run_fl_variant_matches_reference(variant):
+    """One round of each configuration from the reference's initial
+    model: identical cases, latencies, clocks and layer portions, equal
+    accuracies, losses within 1e-5 (the reference runs its sequential
+    loop)."""
+    kw = dict(COMMON, n_rounds=1, **variant)
+    port_exec = kw.pop("execution", "sequential")
+    want = jax_run_fl(JaxFLConfig(execution="sequential", **kw))
+    params, _ = jax_cnn.build_model(kw["dataset"], jax.random.PRNGKey(3),
+                                    image_shape=(28, 28, 1))
+    got = run_fl(FLConfig(execution=port_exec, device="cpu", **kw),
+                 params=params_from_jax(
+                     jax.tree_util.tree_map(np.asarray, params), "cpu"))
+    assert got.cases == want.cases
+    assert got.latencies == want.latencies
+    assert got.times == want.times
+    assert got.layer_portions == want.layer_portions
+    assert got.participated == want.participated
+    assert got.accuracies == want.accuracies
+    np.testing.assert_allclose(got.losses, want.losses, rtol=0, atol=1e-5)
