@@ -94,9 +94,36 @@ Phases, each printed as one JSON object on its own line:
     (``scaled_dot_product_attention``; none for wkv) and ``bound_ms``;
     for flash also the achieved TFLOP/s and the share of the bound.
 
+18. ``transformer_train``: full-width ``llama3.2-3b`` (random bf16
+    weights from seed 0), 3 ``make_sharded_train_step`` steps (SGD,
+    ``TRAIN_LR``, remat) on one fixed batch of 4 x 2048 tokens: losses
+    finite and falling; per step 2 ``flash_attention`` launches a layer
+    (forward and remat recompute) and 1 ``flash_attention_backward``;
+    step wall, tokens/s, peak memory, and one more step under the
+    profiler (busy share, GEMMs, elementwise, attention forward and
+    backward); then at 2 layers of full width one step's gradients
+    through the kernels against the same step through the plain
+    versions, in float32 (each leaf within ``TRAIN_GRAD_TOL`` of its
+    norm) and in bf16 (no more than twice the plain bf16 step's own
+    distance from the float32 one, plus 1e-2).
+19. ``rwkv6_train``: the same for full-width ``rwkv6-1.6b`` (24 layers,
+    ``wkv6`` forward, remat and ``wkv6_backward``).
+20. ``fl_train_step``: ``make_fl_train_step`` on full-width llama3.2-3b,
+    2 replicas, ``h_local`` = 2, 2 x 2048 tokens a replica, 2 rounds:
+    one ``fedavg_agg`` launch a round, the aggregate against
+    ``ref.weighted_aggregate`` of the stacked replicas, every replica
+    slot equal to the aggregate, the round wall.
+21. ``flash_backward_kernel`` / ``wkv_backward_kernel``: each backward
+    kernel against autograd through its plain version (f32, on the same
+    input values) at the training shapes, bf16 and f32 (wkv with decays
+    down to 0), with times beside the plain version's backward and, for
+    attention, ``scaled_dot_product_attention``'s backward, and
+    ``bound_ms``.
+
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after; ``fedavg_agg``'s count in the kernel
-line sums its paths (phases 2, 8, 9, 11 and 12).  Then a
+line sums its paths (phases 2, 8, 9, 11, 12 and 20), the attention and
+wkv counts theirs (prefill, training, the FL step).  Then a
 ``{"kernels": [...]}`` line and, last, the device line.  Any failed phase, a missing CUDA
 device, or a directory without the rest of the repository gives a
 non-zero exit and no result line.
@@ -205,6 +232,8 @@ def time_ms(fn, reps: int = 20, repeats: int = 5) -> dict:
 
 
 def phase_card(kernels):
+    """``kernels``: (source, build) of every library, forward and
+    backward."""
     import torch
     from repro_torch.kernels.build import compile_library
     smi = subprocess.run(
@@ -214,9 +243,9 @@ def phase_card(kernels):
     print(smi, flush=True)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
-        libs = list(pool.map(lambda k: compile_library(k.SOURCE), kernels))
-    for k in kernels:
-        k.build()
+        libs = list(pool.map(lambda k: compile_library(k[0]), kernels))
+    for _, build in kernels:
+        build()
     build_s = time.perf_counter() - t0
     reports = [ptxas_report((lib.parent / "build.log").read_text())
                for lib in libs]
@@ -1556,6 +1585,537 @@ def phase_wkv_kernel(wkv_kernel, wkv_ref, main_shape):
     return cases["main"]
 
 
+# ---------------------------------------------------------------------------
+# Training: the backward kernels and the train steps
+# ---------------------------------------------------------------------------
+# The backward kernels against autograd through their plain versions in
+# float32 on the same input values (tests/test_torch_kernels_cuda.py):
+# f32 1e-4 x (1 + |grad|) (the same products summed in other orders);
+# bf16 2e-2 x (1 + |grad|) (each gradient rounded to bf16 once, and flash
+# reads the forward's bf16-rounded output for delta)
+GRAD_TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
+# wkv f32 at T = 2048: each gradient sums up to ~1,000 decayed terms of
+# size up to ~100 (decays near 1 keep long windows), so two f32 orders,
+# the kernel's sequential scan and the plain version's chunked products,
+# differ by up to ~1e-3 on elements near 0 (9.5e-4 at the main shape with
+# decays down to 0 on an NVIDIA H100).  2e-3 holds that and fails a
+# wrong kernel, whose errors are of the gradients' own size
+WKV_GRAD_TOLERANCE = {"float32": 2e-3, "bfloat16": 2e-2}
+# SGD step of the train phases, by config: with random bf16 weights and
+# random labels an update has to clear bf16's resolution of the weights
+# (2**-8 of them) to move the loss, and not overshoot.  llama3.2-3b falls
+# step by step at 0.03.  rwkv6-1.6b at random init is stiffer: at 0.03
+# its loss went 11.604, 11.587, 11.592 (this phase, NVIDIA H100 at 700 W);
+# at 1e-4 it falls step by step
+TRAIN_LR = {"llama3.2-3b": 0.03, "rwkv6-1.6b": 1e-4}
+# One train step's gradients at full width and 2 layers, through the
+# kernels and through the plain versions (autograd through ref on the
+# card), from the same params and batch.  float32 (TF32 off): each leaf
+# within 1e-3 of its norm (the f32 kernels are held to 2e-5 and 1e-4 of
+# their outputs).  bf16: both paths round every activation to bf16 in
+# their own places, and a leaf whose gradient is a sum with much
+# cancellation (rwkv's u, the mixes) moves by tens of percent between
+# them; so each bf16 path is held against the float32 plain step, and the
+# kernels' error may be at most twice the plain bf16 path's, plus 1e-2
+TRAIN_GRAD_TOL = 1e-3
+
+
+def _grad_check(got, want, tol):
+    """Max abs error of ``got`` against ``want``, and whether every
+    element is finite and within tol x (1 + |want|)."""
+    import torch
+    worst, ok = 0.0, True
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        d = (g - w).abs()
+        worst = max(worst, float(d.max()))
+        ok = (ok and bool(torch.isfinite(g).all())
+              and bool((d <= tol * (1 + w.abs())).all()))
+    return worst, ok
+
+
+def _backward_times(kernel_fn, plain_fn, library_fn, big):
+    """The kernel's times as ``_times`` takes them (a replayed CUDA graph
+    and eager calls); the plain version's and the library call's
+    backward (``torch.autograd.grad`` over a kept graph) as eager calls
+    timed with CUDA events."""
+    import torch
+    reps, repeats = (4, 3) if big else (20, 5)
+    out = _times({"kernel": kernel_fn}, big)
+    for key, fn in (("plain", plain_fn), ("library", library_fn)):
+        if fn is None:
+            out[f"{key}_ms"] = None
+            continue
+        fn()
+        torch.cuda.synchronize()
+
+        def run(fn=fn):
+            for _ in range(reps):
+                fn()
+        out[f"{key}_ms"] = _event_ms(run, repeats) / reps
+    return out
+
+
+def _kept_grad(fn, inputs, dout):
+    """A callable that runs the backward of ``fn(*inputs)`` again on each
+    call (the forward's graph is kept)."""
+    import torch
+    leaves = [x.detach().requires_grad_() for x in inputs]
+    out = fn(*leaves)
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+def _flash_backward_case(fa_kernel, fa_ref, q_shape, hkv, window,
+                         dtype_name, seed):
+    """The backward kernel against autograd through ``ref.attention``,
+    with times beside the plain version's backward and
+    ``scaled_dot_product_attention``'s."""
+    import torch
+    import torch.nn.functional as F
+    dtype = getattr(torch, dtype_name)
+    b, hq, s, d = q_shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(q_shape, generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
+    dout = torch.randn(q_shape, generator=gen, device="cuda").to(dtype)
+    o = fa_kernel.flash_attention(q, k, v, causal=True, window=window)
+    got = fa_kernel.flash_attention_backward(q, k, v, o, dout, causal=True,
+                                             window=window)
+    want = _kept_grad(lambda *x: fa_ref.attention(*x, causal=True,
+                                                  window=window),
+                      [x.float() for x in (q, k, v)], dout.float())()
+    tol = GRAD_TOLERANCE[dtype_name]
+    err, ok = _grad_check(got, want, tol)
+    scale = max(float(w.abs().max()) for w in want)
+    del want
+    _free()
+    idx = torch.arange(s, device="cuda")
+    if window is None or window >= s:
+        def sdpa(*x):
+            return F.scaled_dot_product_attention(*x, is_causal=True,
+                                                  enable_gqa=True)
+        pairs = s * (s + 1) // 2
+    else:
+        mask = ((idx[None, :] <= idx[:, None])
+                & (idx[None, :] > idx[:, None] - window))
+
+        def sdpa(*x):
+            return F.scaled_dot_product_attention(*x, attn_mask=mask,
+                                                  enable_gqa=True)
+        pairs = int(mask.sum())
+    # q, o, do read and dq written; k, v read and dk, dv written; the
+    # work 2.5x the forward's (2 FLOP per multiply-add of q.k and p.v
+    # over the unmasked pairs)
+    nbytes = 4 * (q.numel() + k.numel()) * q.element_size()
+    ops = 2.5 * 4 * d * pairs * b * hq
+    big = nbytes > 50e6
+    times = _backward_times(
+        lambda: fa_kernel.flash_attention_backward(q, k, v, o, dout,
+                                                   causal=True,
+                                                   window=window),
+        _kept_grad(lambda *x: fa_ref.attention(*x, causal=True,
+                                               window=window),
+                   (q, k, v), dout),
+        _kept_grad(sdpa, (q, k, v), dout), big)
+    bound = _bound(nbytes, ops, dtype_name)
+    rec = {"q_shape": list(q_shape), "kv_heads": hkv, "window": window,
+           "dtype": dtype_name, "max_abs_err": err,
+           "max_abs_grad": scale, "tolerance": tol, "ok": ok, **times,
+           **bound, "bound_share": bound["bound_ms"] / times["kernel_ms"]}
+    _free()
+    return rec
+
+
+def phase_flash_backward_kernel(fa_kernel, fa_ref, train_shapes):
+    """The llama3.2-3b training shape in bf16 (as it runs) and in f32,
+    and a ragged windowed case; the plain version's f32 einsums with TF32
+    off."""
+    import torch
+    main = (train_shapes["q"], train_shapes["kv_heads"],
+            train_shapes["window"])
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cases = {"main": _flash_backward_case(fa_kernel, fa_ref, *main,
+                                              "bfloat16", 0),
+                 "main-float32": _flash_backward_case(
+                     fa_kernel, fa_ref, *main, "float32", 0)}
+        for dtype_name in ("float32", "bfloat16"):
+            cases[f"ragged-64-{dtype_name}"] = _flash_backward_case(
+                fa_kernel, fa_ref, (2, 4, 200, 64), 2, 64, dtype_name, 1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    for name, case in cases.items():
+        emit({"phase": "flash_backward_kernel", "case": name, **case})
+    bad = [k for k, v in cases.items() if not v["ok"]]
+    if bad:
+        raise RuntimeError(f"flash_attention backward disagrees with "
+                           f"autograd through its plain version: {bad}")
+    return cases["main"]
+
+
+def _wkv_backward_case(wkv_kernel, wkv_ref, shape, dtype_name, seed, w_lo):
+    """The backward kernel against autograd through ``ref.wkv_chunked``
+    (``ref.wkv`` where T is no multiple of 64), with times.  ``w_lo`` = 0:
+    decays from [0, 0.999] with exact zeros, as ``_wkv_case``."""
+    import torch
+    dtype = getattr(torch, dtype_name)
+    b, h, t, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(sh, scale=1.0):
+        return (torch.randn(sh, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    r, k, v = normal(shape), normal(shape, 0.3), normal(shape)
+    w = w_lo + (0.999 - w_lo) * torch.rand(shape, generator=gen,
+                                           device="cuda")
+    if w_lo == 0.0:
+        w[:, :, ::5, ::3] = 0.0
+    w = w.to(dtype)
+    u = normal((h, d), 0.1)
+    dout = normal(shape)
+    inputs = (r, k, v, w, u)
+    got = wkv_kernel.wkv_backward(*inputs, dout)
+    if t % 64 == 0:
+        def plain(*x):
+            return wkv_ref.wkv_chunked(*x, chunk=64)
+    else:
+        plain = wkv_ref.wkv
+    want = _kept_grad(plain, [x.float() for x in inputs], dout.float())()
+    tol = WKV_GRAD_TOLERANCE[dtype_name]
+    err, ok = _grad_check(got, want, tol)
+    scale = max(float(x.abs().max()) for x in want)
+    del want
+    _free()
+    # r, k, v, w, do read and dr, dk, dv, dw written, u read and du
+    # written; the recurrences' least work, 14 D^2 FLOP a step (one
+    # forward pass of the state, the reverse scan with its row sums, dv),
+    # at the inputs' rate
+    nbytes = (9 * r.numel() + 2 * u.numel()) * r.element_size()
+    ops = 14 * d * d * t * b * h
+    times = _backward_times(
+        lambda: wkv_kernel.wkv_backward(*inputs, dout),
+        _kept_grad(plain, inputs, dout), None, nbytes > 50e6)
+    bound = _bound(nbytes, ops, dtype_name)
+    rec = {"shape": list(shape), "dtype": dtype_name, "w_lo": w_lo,
+           "max_abs_err": err, "max_abs_grad": scale, "tolerance": tol,
+           "ok": ok, "plain_form": "wkv_chunked" if t % 64 == 0 else "wkv",
+           **times, **bound,
+           "bound_share": bound["bound_ms"] / times["kernel_ms"]}
+    _free()
+    return rec
+
+
+def phase_wkv_backward_kernel(wkv_kernel, wkv_ref, main_shape):
+    """rwkv6-1.6b's training shape in bf16, with mild decays and with
+    decays down to 0, and in f32 down to 0; a ragged case."""
+    cases = {
+        "main": _wkv_backward_case(wkv_kernel, wkv_ref, main_shape,
+                                   "bfloat16", 0, 0.7),
+        "main-strong": _wkv_backward_case(wkv_kernel, wkv_ref, main_shape,
+                                          "bfloat16", 0, 0.0),
+        "main-strong-float32": _wkv_backward_case(
+            wkv_kernel, wkv_ref, main_shape, "float32", 0, 0.0)}
+    for dtype_name in ("float32", "bfloat16"):
+        cases[f"ragged-strong-{dtype_name}"] = _wkv_backward_case(
+            wkv_kernel, wkv_ref, (2, 4, 200, 64), dtype_name, 1, 0.0)
+    for name, case in cases.items():
+        emit({"phase": "wkv_backward_kernel", "case": name, **case})
+    bad = [k for k, v in cases.items() if not v["ok"]]
+    if bad:
+        raise RuntimeError(f"wkv6 backward disagrees with autograd through "
+                           f"its plain version: {bad}")
+    return cases["main"]
+
+
+def _train_batch(cfg, lead, seq, seed=0):
+    """Random next-token batch of ``lead`` + (seq,) tokens on the card."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (*lead, seq + 1),
+                           generator=gen, device="cuda")
+    return {"inputs": tokens[..., :-1].contiguous(),
+            "labels": tokens[..., 1:].contiguous()}
+
+
+class _PlainOps:
+    """The plain versions in place of the kernels in ``models.layers``
+    while it is entered: attention through ``ref.attention``, the RWKV6
+    recurrence through ``ref.wkv_chunked``, differentiated by autograd
+    on the card."""
+
+    def __enter__(self):
+        from types import SimpleNamespace
+        from repro_torch.kernels.flash_attention import ref as fa_ref
+        from repro_torch.kernels.wkv6 import ref as wkv_ref
+        from repro_torch.models import layers
+        self.layers = layers
+        self.saved = (layers.fa, layers.wkv_ops)
+        layers.fa = SimpleNamespace(attention=fa_ref.attention)
+        layers.wkv_ops = SimpleNamespace(
+            wkv=lambda *x: wkv_ref.wkv_chunked(*x, chunk=64),
+            wkv_step=wkv_ref.wkv_step)
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.fa, self.layers.wkv_ops = self.saved
+
+
+def _leaf_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, t in enumerate(tree)
+                for p in _leaf_paths(t, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def _grads_vs_plain(launchers, name, batch, seq, kernels):
+    """One step's loss and gradients at full width and 2 layers, through
+    the kernels and through the plain versions, in bf16 and in float32
+    (the same values widened), from the same batch: each leaf's error
+    relative to the norm of the float32 plain step's gradient."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config(name), n_layers=2)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    params = T.init_params(cfg, seed=1, device="cuda")
+    params32 = tree_map(lambda x: x.to(torch.float32), params)
+    data = _train_batch(cfg, (batch,), seq, seed=1)
+    names = _leaf_paths(params)
+
+    def run(tree, c):
+        grads, metrics = T.loss_and_grads(tree, c, data)
+        return [g.to(torch.float32) for g in tree_leaves(grads)], float(
+            metrics["loss"])
+
+    saved = _tf32_off()
+    try:
+        set_counts(launchers)
+        kern, kern32 = run(params, cfg), run(params32, cfg32)
+        torch.cuda.synchronize()
+        counts = read_counts(launchers)
+        with _PlainOps():
+            plain, plain32 = run(params, cfg), run(params32, cfg32)
+        torch.cuda.synchronize()
+        plain_counts = read_counts(launchers)
+    finally:
+        _restore(saved)
+
+    def rel(got, want):
+        return [float((g - w).norm() / max(float(w.norm()), 1e-30))
+                for g, w in zip(got[0], want[0])]
+
+    f32 = rel(kern32, plain32)
+    bf16_kern, bf16_plain = rel(kern, plain32), rel(plain, plain32)
+    worst = max(range(len(names)), key=lambda i: bf16_kern[i]
+                - 2 * bf16_plain[i])
+    finite = all(bool(torch.isfinite(g).all()) for g in kern[0] + kern32[0])
+    ok = (finite and max(f32) <= TRAIN_GRAD_TOL
+          and all(a <= 2 * b + 1e-2 for a, b in zip(bf16_kern, bf16_plain))
+          and all(counts[k] > 0 for k in kernels)
+          and plain_counts == counts)
+    rec = {"n_layers": cfg.n_layers,
+           "loss": {"kernels": kern[1], "plain": plain[1],
+                    "kernels_f32": kern32[1], "plain_f32": plain32[1]},
+           "f32_grad_rel_err_max": max(f32),
+           "f32_worst_leaf": names[max(range(len(names)),
+                                       key=f32.__getitem__)],
+           "f32_tolerance": TRAIN_GRAD_TOL,
+           "bf16_grad_rel_err_median": {
+               "kernels": statistics.median(bf16_kern),
+               "plain": statistics.median(bf16_plain)},
+           "bf16_worst_leaf": {"leaf": names[worst],
+                               "kernels": bf16_kern[worst],
+                               "plain": bf16_plain[worst]},
+           "launches": counts, "ok": ok}
+    del params, params32, kern, kern32, plain, plain32
+    _free()
+    return rec
+
+
+def _train_phase(launchers, phase, name, kernels, batch=4, seq=2048,
+                 steps=3):
+    """Full-width ``name`` (random bf16 weights from seed 0) through
+    ``make_sharded_train_step`` (SGD at ``TRAIN_LR``, params updated in
+    place), ``steps`` steps on one fixed batch of ``batch`` x ``seq``
+    tokens, with every count set to 0 just before; one more step under
+    the profiler; then the gradients at 2 layers against the plain
+    versions (``_grads_vs_plain``).  ``kernels``: (forward, backward) wrapper names, each
+    launched once per layer per step, the forward twice (remat)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.train import make_sharded_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(name)
+    params = T.init_params(cfg, seed=0, device="cuda")
+    data = _train_batch(cfg, (batch,), seq)
+    step = make_sharded_train_step(
+        cfg, InputShape("train_smoke", seq, batch, "train"),
+        lr=TRAIN_LR[name])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    set_counts(launchers)
+    losses, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, metrics = step(params, data)
+        losses.append(float(metrics["loss"]))   # synchronizes
+        walls.append(time.perf_counter() - t0)
+    counts = read_counts(launchers)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    prof_wall, by_name = _profile(lambda: step(params, data))
+    del params
+    _free()
+    fwd, bwd = kernels
+    falling = all(b < a for a, b in zip(losses, losses[1:]))
+    ok = (all(math.isfinite(x) for x in losses) and falling
+          and counts[fwd] == 2 * cfg.n_layers * steps
+          and counts[bwd] == cfg.n_layers * steps)
+    versus = _grads_vs_plain(launchers, name, batch, seq, kernels)
+    rec = {"config": cfg.name, "dtype": cfg.param_dtype, "params": n_params,
+           "batch": batch, "seq_len": seq, "lr": TRAIN_LR[name],
+           "remat": cfg.remat,
+           "losses": losses, "step_wall_s": walls,
+           "tokens_per_s": batch * seq / statistics.median(walls[1:]),
+           "peak_memory_gib": peak, "launches": counts,
+           "launches_per_step": {k: counts[k] / steps for k in kernels},
+           **_share(by_name, prof_wall, "gemm", "nvjet", "elementwise",
+                    "reduce", *({"flash_attention": ("flash_attention",
+                                                     "fa_bwd"),
+                                 "wkv6": ("wkv6_chunked", "wkv6_bwd")}[fwd])),
+           "vs_plain_2_layers": versus, "ok": ok and versus["ok"]}
+    emit({"phase": phase, **rec})
+    if not rec["ok"]:
+        raise RuntimeError(f"{name} training: losses not finite and "
+                           f"falling, launches other than 2 x {fwd} and 1 "
+                           f"x {bwd} a layer a step, or gradients apart "
+                           f"from the plain versions'")
+    return counts
+
+
+def phase_transformer_train(launchers):
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3.2-3b")
+    counts = _train_phase(launchers, "transformer_train", "llama3.2-3b",
+                          ("flash_attention", "flash_attention_backward"))
+    return counts, {"q": (4, cfg.n_heads, 2048, cfg.head_dim),
+                    "kv_heads": cfg.n_kv_heads,
+                    "window": cfg.sliding_window}
+
+
+def phase_rwkv6_train(launchers):
+    from repro_torch.configs import get_config
+    cfg = get_config("rwkv6-1.6b")
+    counts = _train_phase(launchers, "rwkv6_train", "rwkv6-1.6b",
+                          ("wkv6", "wkv6_backward"))
+    h = cfg.d_model // 64
+    return counts, (4, h, 2048, cfg.d_model // h)
+
+
+def phase_fl_train_step(launchers, agg_ref, n_replicas=2, per_replica=2,
+                        h_local=2, seq=2048, rounds=2):
+    """``make_fl_train_step`` on full-width llama3.2-3b: ``n_replicas``
+    replicas of one initial model, ``per_replica`` x ``seq`` tokens each,
+    ``h_local`` local steps, ``rounds`` rounds.  A tap on the aggregation
+    op holds each leaf of the aggregate the kernel returns against
+    ``ref.weighted_aggregate`` of the same stacked replicas (float32,
+    ``TOLERANCE``) and keeps its first elements; afterwards every replica
+    slot must equal the aggregate."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.fl import aggregation
+    from repro_torch.launch.train import make_fl_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("llama3.2-3b")
+    base = T.init_params(cfg, seed=0, device="cuda")
+    rep = tree_map(lambda x: torch.stack([x] * n_replicas), base)
+    del base
+    _free()
+    data = _train_batch(cfg, (n_replicas, per_replica), seq, seed=2)
+    step = make_fl_train_step(
+        cfg, n_replicas,
+        InputShape("fl_smoke", seq, n_replicas * per_replica, "train"),
+        lr=TRAIN_LR["llama3.2-3b"], h_local=h_local)
+    real = aggregation.agg_ops
+    checks = {"err": 0.0, "ok": True, "calls": 0, "samples": []}
+
+    class Tap:
+        weighted_aggregate = staticmethod(real.weighted_aggregate)
+
+        @staticmethod
+        def aggregate(buckets, weights):
+            outs = real.aggregate(buckets, weights)
+            checks["calls"] += 1
+            checks["samples"] = []
+            tol = TOLERANCE[str(outs[0].dtype).split(".")[-1]]
+            for stack, out in zip(buckets[0], outs):
+                want = agg_ref.weighted_aggregate(stack, weights)
+                d = (out.float() - want.float()).abs()
+                checks["err"] = max(checks["err"], float(d.max()))
+                checks["ok"] &= bool((d <= tol * (1 + want.float().abs()))
+                                     .all())
+                checks["samples"].append(out.flatten()[:4096].clone())
+            return outs
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    aggregation.agg_ops = Tap()
+    set_counts(launchers)
+    walls, losses = [], []
+    try:
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            rep, metrics = step(rep, data)
+            losses.append(float(metrics["loss"]))   # synchronizes
+            walls.append(time.perf_counter() - t0)
+    finally:
+        aggregation.agg_ops = real
+    counts = read_counts(launchers)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    leaves = tree_leaves(rep)
+    slots_equal = all(torch.equal(x[0], x[r]) for x in leaves
+                      for r in range(1, n_replicas))
+    slots_are_aggregate = all(
+        torch.equal(x[0].flatten()[:4096], s.to(x.dtype))
+        for x, s in zip(leaves, checks["samples"]))
+    steps = rounds * n_replicas * h_local
+    ok = (counts["fedavg_agg"] == rounds and checks["calls"] == rounds
+          and checks["ok"] and slots_equal and slots_are_aggregate
+          and all(math.isfinite(x) for x in losses)
+          and counts["flash_attention"] == 2 * cfg.n_layers * steps
+          and counts["flash_attention_backward"] == cfg.n_layers * steps)
+    emit({"phase": "fl_train_step", "ok": ok, "config": cfg.name,
+          "n_replicas": n_replicas, "tokens_per_replica": per_replica * seq,
+          "h_local": h_local, "agg_dtype": "float32", "rounds": rounds,
+          "round_wall_s": walls, "losses": losses,
+          "tokens_per_s": n_replicas * per_replica * seq * h_local
+          / statistics.median(walls),
+          "peak_memory_gib": peak, "aggregate_max_abs_err": checks["err"],
+          "aggregate_tolerance": TOLERANCE["float32"],
+          "slots_equal": slots_equal,
+          "slots_are_aggregate": slots_are_aggregate, "launches": counts})
+    del rep, leaves
+    checks.clear()
+    _free()
+    if not ok:
+        raise RuntimeError("fl_train_step: not one fedavg_agg launch a "
+                           "round, replica slots apart from the aggregate, "
+                           "or the aggregate apart from its plain version")
+    return counts
+
+
 def _kernel_line(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1590,9 +2150,16 @@ def main() -> int:
         return 2
     launchers = {"fedavg_agg": agg_kernel.weighted_aggregate,
                  "flash_attention": fa_kernel.flash_attention,
-                 "wkv6": wkv_kernel.wkv}
+                 "flash_attention_backward":
+                     fa_kernel.flash_attention_backward,
+                 "wkv6": wkv_kernel.wkv,
+                 "wkv6_backward": wkv_kernel.wkv_backward}
     try:
-        phase_card([agg_kernel, fa_kernel, wkv_kernel])
+        phase_card([(agg_kernel.SOURCE, agg_kernel.build),
+                    (fa_kernel.SOURCE, fa_kernel.build),
+                    (fa_kernel.SOURCE_BWD, fa_kernel.build_backward),
+                    (wkv_kernel.SOURCE, wkv_kernel.build),
+                    (wkv_kernel.SOURCE_BWD, wkv_kernel.build_backward)])
         launches, split = phase_main_path(launchers)
         phase_round_profile()
         summary = phase_kernel(agg_kernel, agg_ref, split)
@@ -1615,6 +2182,19 @@ def main() -> int:
         fa_case = phase_flash_kernel(fa_kernel, fa_ref, prefill_shapes,
                                      f32_shapes)
         wkv_case = phase_wkv_kernel(wkv_kernel, wkv_ref, wkv_shape)
+        train, train_shapes = phase_transformer_train(launchers)
+        rwkv_train, rwkv_train_shape = phase_rwkv6_train(launchers)
+        fl_train = phase_fl_train_step(launchers, agg_ref)
+        launches += fl_train["fedavg_agg"]
+        fa_launches += train["flash_attention"] + fl_train["flash_attention"]
+        fa_bwd_launches = (train["flash_attention_backward"]
+                           + fl_train["flash_attention_backward"])
+        wkv_launches += rwkv_train["wkv6"]
+        wkv_bwd_launches = rwkv_train["wkv6_backward"]
+        fa_bwd_case = phase_flash_backward_kernel(fa_kernel, fa_ref,
+                                                  train_shapes)
+        wkv_bwd_case = phase_wkv_backward_kernel(wkv_kernel, wkv_ref,
+                                                 rwkv_train_shape)
     except Exception:  # report the failed phase, then fail the run
         traceback.print_exc()
         emit({"phase": "failed", "error": traceback.format_exc(limit=3)})
@@ -1628,9 +2208,16 @@ def main() -> int:
                      "flash_attention/csrc/flash_attention_wgmma.cuh",
                      "src/repro/kernels/flash_attention/kernel.py:76",
                      fa_launches, fa_case),
+        _kernel_line("flash_attention_backward", "src/repro_torch/kernels/"
+                     "flash_attention/csrc/flash_attention_bwd.cu",
+                     "src/repro/kernels/flash_attention/kernel.py:76",
+                     fa_bwd_launches, fa_bwd_case),
         _kernel_line("wkv6", "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
                      "src/repro/kernels/wkv6/kernel.py:53", wkv_launches,
-                     wkv_case)]})
+                     wkv_case),
+        _kernel_line("wkv6_backward", "src/repro_torch/kernels/wkv6/csrc/"
+                     "wkv6_bwd.cu", "src/repro/kernels/wkv6/kernel.py:53",
+                     wkv_bwd_launches, wkv_bwd_case)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

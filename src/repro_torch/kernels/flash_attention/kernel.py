@@ -11,6 +11,11 @@ wrapper checks what the kernels take and raises on anything else,
 allocates the output, launches on the current stream and never
 synchronizes.  ``flash_attention.launches`` counts launches;
 :func:`variant_launches` reads the C entry point's count by kernel.
+
+:func:`flash_attention_backward` wraps the gradient kernels
+(``csrc/flash_attention_bwd.cu``, a library of its own): dq, dk and dv
+from q, k, v, the forward's output and its gradient, in three launches
+counted once in ``flash_attention_backward.launches``.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 from ..build import load_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+SOURCE_BWD = SOURCE.with_name("flash_attention_bwd.cu")
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the C entry point's kernels, by its variant number
@@ -35,6 +41,16 @@ def build():
     """Compile (at first use) and bind the kernel's C entry point."""
     fn = load_library(SOURCE).flash_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def build_backward():
+    """Compile (at first use) and bind the backward's C entry point."""
+    fn = load_library(SOURCE_BWD).flash_attention_backward_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -118,3 +134,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, causal: bool = True,
+                             window: Optional[int] = None):
+    """Gradients of :func:`flash_attention` on a CUDA device.
+
+    q, o, do: (B, Hq, S, D); k, v: (B, Hkv, S, D), all one type and
+    contiguous; ``o`` is the forward's output for the same arguments and
+    ``do`` the gradient of the loss with respect to it.  Returns (dq, dk,
+    dv) in q's type, dk and dv summed over each KV head's query heads."""
+    _check(q, k, v, window)
+    for name, t in (("o", o), ("do", do)):
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError(f"{name} must be {q.dtype} {tuple(q.shape)} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention backward needs {name} "
+                             f"contiguous and 16-byte aligned")
+    b, hq, s, d = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lse, delta = (torch.empty((b, hq, s), dtype=torch.float32,
+                              device=q.device) for _ in range(2))
+    launch = build_backward()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), b, hq,
+                    k.shape[1], s, d, int(causal),
+                    -1 if window is None else int(window), _DTYPES[q.dtype],
+                    stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {rc} (q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}, {q.dtype})")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0

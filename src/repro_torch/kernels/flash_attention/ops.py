@@ -1,12 +1,37 @@
-"""Dispatch by device: the CUDA kernel for a CUDA tensor, the plain
+"""Dispatch by device: the CUDA kernels for a CUDA tensor, the plain
 PyTorch version for a CPU tensor."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import kernel, ref
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel, with the backward kernels as its gradient.
+
+    ``ctx`` keeps q, k, v and the output; ``backward`` hands them and the
+    output's gradient (made contiguous: it arrives as a transpose from
+    ``gqa_apply``) to :func:`kernel.flash_attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o = kernel.flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = kernel.flash_attention_backward(
+            q, k, v, o, do.contiguous(), causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -17,8 +42,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, Hq, S, D); k, v: (B, Hkv, S, D).  A CPU tensor goes to
     :mod:`.ref`, as the reference dispatches off the TPU: the blocked
     form when ``S >= 4096`` and ``S % 1024 == 0`` (no (S, S) scores),
-    else the exact form.  Any other tensor goes to the kernel, for any S,
-    which launches or raises.
+    else the exact form; autograd differentiates it.  Any other tensor
+    goes to the kernels through :class:`FlashAttention`, for any S, which
+    launch or raise.
     """
     if q.device.type == "cpu":
         s = q.shape[2]
@@ -26,4 +52,4 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return ref.blocked_attention(q, k, v, causal=causal,
                                          window=window)
         return ref.attention(q, k, v, causal=causal, window=window)
-    return kernel.flash_attention(q, k, v, causal=causal, window=window)
+    return FlashAttention.apply(q, k, v, causal, window)

@@ -6,6 +6,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def _mask(rows: torch.Tensor, cols: torch.Tensor, causal: bool,
@@ -49,7 +50,9 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Equal to :func:`attention` up to rounding, but never materializes the
     (S, S) score matrix: an online softmax with f32 running max ``m``,
-    sum ``l`` and accumulator; rows with no unmasked key give 0.
+    sum ``l`` and accumulator; rows with no unmasked key give 0.  Each
+    block's step is checkpointed, so its gradient keeps one block's
+    probabilities at a time.
     """
     b, hq, s, d = q.shape
     hkv = k.shape[1]
@@ -60,10 +63,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(d)
     rows = torch.arange(s, device=q.device)[:, None]
     qf = q.to(torch.float32)
-    m = torch.full((b, hq, s), -1e30, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, hq, s), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hq, s, d), dtype=torch.float32, device=q.device)
-    for j in range(s // block):
+
+    def step(m, l, acc, j):
         sl = slice(j * block, (j + 1) * block)
         k_j = k[:, :, sl].to(torch.float32).repeat_interleave(group, dim=1)
         v_j = v[:, :, sl].to(torch.float32).repeat_interleave(group, dim=1)
@@ -77,6 +78,15 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = alpha * l + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p,
                                                     v_j)
-        m = m_new
+        return m_new, l, acc
+
+    m = torch.full((b, hq, s), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hq, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hq, s, d), dtype=torch.float32, device=q.device)
+    # checkpoint the KV-block step, as the reference does: backward
+    # recomputes the (S, block) probabilities instead of saving one per
+    # block
+    for j in range(s // block):
+        m, l, acc = checkpoint(step, m, l, acc, j, use_reentrant=False)
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     return (acc / l[..., None]).to(q.dtype)

@@ -9,6 +9,11 @@ float32 (and bfloat16 at D = 8) the column-split scan on the CUDA cores.
 The wrapper checks what the kernels take and raises on anything else,
 allocates the output, launches on the current stream and never
 synchronizes.  ``wkv.launches`` counts launches.
+
+:func:`wkv_backward` wraps the gradient kernels (``csrc/wkv6_bwd.cu``, a
+library of its own): dr, dk, dv, dw and du from the forward's inputs and
+the output's gradient, in three launches counted once in
+``wkv_backward.launches``.
 """
 from __future__ import annotations
 
@@ -21,6 +26,10 @@ import torch
 from ..build import load_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
+SOURCE_BWD = SOURCE.with_name("wkv6_bwd.cu")
+# the backward's state checkpoints: every CKPT_STEPS steps over T, and
+# every CKPT_SUB_STEPS steps within one such chunk (csrc/wkv6_bwd.cu)
+CKPT_STEPS, CKPT_SUB_STEPS = 64, 8
 HEAD_DIMS = (8, 16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -30,6 +39,16 @@ def build():
     """Compile (at first use) and bind the kernel's C entry point."""
     fn = load_library(SOURCE).wkv6_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def build_backward():
+    """Compile (at first use) and bind the backward's C entry point."""
+    fn = load_library(SOURCE_BWD).wkv6_backward_launch
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -85,3 +104,41 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 
 
 wkv.launches = 0
+
+
+def wkv_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor, do: torch.Tensor):
+    """Gradients of :func:`wkv` on a CUDA device.
+
+    r, k, v, w, do: (B, H, T, D); u: (H, D), all one type and contiguous;
+    ``do`` is the gradient of the loss with respect to ``wkv``'s output.
+    Returns (dr, dk, dv, dw, du) in r's type; ``dw`` is the gradient with
+    respect to the decay ``w`` itself, ``du`` is summed over B and T."""
+    _check(r, k, v, w, u)
+    if do.device != r.device or do.dtype != r.dtype or do.shape != r.shape:
+        raise ValueError(f"do must be {r.dtype} {tuple(r.shape)} on "
+                         f"{r.device}, got {do.dtype} {tuple(do.shape)} on "
+                         f"{do.device}")
+    if not do.is_contiguous() or do.data_ptr() % 16:
+        raise ValueError("wkv6 backward needs do contiguous and 16-byte "
+                         "aligned")
+    b, h, t, d = r.shape
+    grads = [torch.empty_like(x) for x in (r, k, v, w, u)]
+    f32 = dict(dtype=torch.float32, device=r.device)
+    du_part = torch.empty((b, h, d), **f32)
+    ckpt = torch.empty((b, h, -(-t // CKPT_STEPS), d, d), **f32)
+    ckpt_sub = torch.empty((b, h, CKPT_STEPS // CKPT_SUB_STEPS, d, d), **f32)
+    launch = build_backward()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = launch(*(x.data_ptr() for x in (r, k, v, w, u, do, *grads,
+                                             du_part, ckpt, ckpt_sub)),
+                    b, h, t, d, _DTYPES[r.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv6 backward launch failed: CUDA error {rc} "
+                           f"(r {tuple(r.shape)}, {r.dtype})")
+    wkv_backward.launches += 1
+    return tuple(grads)
+
+
+wkv_backward.launches = 0

@@ -5,8 +5,9 @@ RMSNorm / non-parametric LN, RoPE (interleaved pairs), GQA attention
 (+qk-norm, sliding window) with its one-token decode over a ring-buffer
 cache, SwiGLU, and the RWKV6 time / channel mix with their decode forms.
 Full-sequence attention runs through ``kernels/flash_attention`` and the
-RWKV6 recurrence through ``kernels/wkv6``; the decode steps are plain
-torch, as they are plain jnp in the reference.  MLA, MoE and Mamba raise
+RWKV6 recurrence through ``kernels/wkv6``, whose gradients on the card
+come from their backward kernels (the ops' autograd Functions); the
+decode steps are plain torch, as they are plain jnp in the reference.  MLA, MoE and Mamba raise
 ``NotImplementedError`` until their slice.
 
 Weights keep the reference's ``(din, dout)`` layout, so every projection

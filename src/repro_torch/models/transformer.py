@@ -1,13 +1,15 @@
-"""Decoder-only transformer composed from ``ModelConfig``: inference.
+"""Decoder-only transformer composed from ``ModelConfig``.
 
-The counterpart of the reference's ``models/transformer.py`` for
-prefill and decode: block templates, ``init_params``, ``forward``,
-``logits_fn``, the decode cache and ``serve_step``.  The reference
-stacks every block's params along a leading layer axis and scans over
-it; here ``params["blocks"]`` is a list with one dict per block, and the
-layer loop is a Python loop.  Training (``make_train_step``, the chunked
-cross-entropy) comes with the training slice; MLA, MoE and Mamba blocks
-raise ``NotImplementedError`` until theirs.
+The counterpart of the reference's ``models/transformer.py``: block
+templates, ``init_params``, ``forward`` (with per-block activation
+checkpointing when ``cfg.remat``), ``logits_fn``, the chunked
+cross-entropy, ``loss_fn`` and ``make_train_step``, the decode cache and
+``serve_step``.  The reference stacks every block's params along a
+leading layer axis and scans over it; here ``params["blocks"]`` is a list
+with one dict per block, and the layer loop is a Python loop.  Gradients
+come from autograd; on the card, attention's and the RWKV6 recurrence's
+from their backward kernels.  MLA, MoE and Mamba blocks raise
+``NotImplementedError`` until their slice.
 """
 from __future__ import annotations
 
@@ -16,10 +18,14 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..tree import tree_leaves, tree_map
 from . import layers as L
+
+LOSS_CHUNK = 512
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +147,28 @@ def _apply_sublayer(sp, x, cfg: ModelConfig, sub: Sublayer, positions):
     return x
 
 
+def _apply_block(block, x, cfg: ModelConfig, subs, positions):
+    for j, sub in enumerate(subs):
+        x = _apply_sublayer(block[f"sub{j}"], x, cfg, sub, positions)
+    return x
+
+
+def apply_blocks(params, x, cfg: ModelConfig, positions):
+    """Every block over ``x``; returns (x, the MoE aux loss: 0 until MoE
+    is ported).  With ``cfg.remat`` and grad enabled each block is
+    checkpointed, as the reference's ``jax.checkpoint(body)``: backward
+    keeps only every block's input and recomputes the block."""
+    subs = block_template(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for block in params["blocks"]:
+        if remat:
+            x = checkpoint(_apply_block, block, x, cfg, subs, positions,
+                           use_reentrant=False)
+        else:
+            x = _apply_block(block, x, cfg, subs, positions)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def embed_inputs(params, cfg: ModelConfig, inputs):
     if cfg.input_mode == "tokens":
         return F.embedding(inputs, params["embed"]["w"])
@@ -160,18 +188,91 @@ def forward(params, cfg: ModelConfig, inputs,
     s = inputs.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=inputs.device)
-    subs = block_template(cfg)
     x = embed_inputs(params, cfg, inputs)
-    for block in params["blocks"]:
-        for j, sub in enumerate(subs):
-            x = _apply_sublayer(block[f"sub{j}"], x, cfg, sub, positions)
-    x = L.norm_apply(params["final_norm"], x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = apply_blocks(params, x, cfg, positions)
+    return L.norm_apply(params["final_norm"], x, cfg), aux
 
 
 def logits_fn(params, cfg: ModelConfig, inputs, positions=None):
     h, aux = forward(params, cfg, inputs, positions)
     return unembed(params, cfg, h), aux
+
+
+# ---------------------------------------------------------------------------
+# Loss + train step -----------------------------------------------------------
+# ---------------------------------------------------------------------------
+def chunked_ce_loss(params, cfg: ModelConfig, h, labels):
+    """Mean cross-entropy over (B, S) labels without materializing
+    (B, S, V) logits: the sequence goes in ``LOSS_CHUNK`` slices, each
+    slice's logits (B, C, V) in f32, the sum carried in f32."""
+    b, s, _ = h.shape
+    chunk = min(LOSS_CHUNK, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the loss chunk "
+                         f"{chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(s // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        logits = unembed(params, cfg, h[:, sl]).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, sl, None].long())[..., 0]
+        total = total + torch.sum(logz - gold)
+    return total / (b * s)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """(ce + 0.01 aux, (ce, aux)) of ``batch`` (``inputs``, ``labels``)."""
+    h, aux = forward(params, cfg, batch["inputs"])
+    ce = chunked_ce_loss(params, cfg, h, batch["labels"])
+    return ce + 0.01 * aux, (ce, aux)
+
+
+def loss_and_grads(params, cfg: ModelConfig, batch):
+    """The gradient of :func:`loss_fn` with respect to every leaf of
+    ``params`` (a tree of the same nesting; zeros for a leaf the loss does
+    not reach), and the metrics ``loss``, ``ce``, ``aux`` (detached 0-d
+    f32 tensors)."""
+    leaves = tree_leaves(params)
+    tracked = [p.detach().requires_grad_() for p in leaves]
+    it = iter(tracked)
+    loss, (ce, aux) = loss_fn(tree_map(lambda _: next(it), params), cfg,
+                              batch)
+    grads = torch.autograd.grad(loss, tracked, allow_unused=True)
+    it = iter(torch.zeros_like(p) if g is None else g
+              for p, g in zip(leaves, grads))
+    return tree_map(lambda _: next(it), params), {
+        "loss": loss.detach(), "ce": ce.detach(), "aux": aux.detach()}
+
+
+def sgd_leaf(p, g, lr: float):
+    """One SGD update of a leaf in the reference's arithmetic: f32, then
+    back to the leaf's type."""
+    return (p.to(torch.float32) - lr * g.to(torch.float32)).to(p.dtype)
+
+
+def batch_to(batch, device):
+    return {key: batch[key].to(device) for key in ("inputs", "labels")}
+
+
+def make_train_step(cfg: ModelConfig, lr: float = 1e-3,
+                    optimizer: str = "sgd", device="cuda"):
+    """Returns train_step(params, batch) -> (params, metrics) on
+    ``device``.
+
+    Plain SGD (paper eqs. 3-6), as the reference's: ``optimizer`` is
+    accepted and, as there, not read.  ``batch`` has ``inputs`` (tokens
+    (B, S) int or embeddings (B, S, D)) and ``labels`` (B, S) int, moved
+    to ``device``.  Functional: new params, the given ones untouched.
+    """
+    dev = resolve_device(device)
+
+    def train_step(params, batch):
+        grads, metrics = loss_and_grads(params, cfg, batch_to(batch, dev))
+        with torch.no_grad():
+            new = tree_map(lambda p, g: sgd_leaf(p, g, lr), params, grads)
+        return new, metrics
+
+    return train_step
 
 
 # ---------------------------------------------------------------------------

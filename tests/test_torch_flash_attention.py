@@ -12,6 +12,7 @@ use.
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -189,3 +190,93 @@ def test_tensor_core_arithmetic_holds_card_tolerance(b, hq, hkv, s, d,
                  _np(jax_ref.attention(q, k, v, causal=causal,
                                        window=window))):
         assert np.all(np.abs(got - want) <= 1e-2 * (1 + np.abs(want)))
+
+
+# ---------------------------------------------------------------------------
+# gradients on the CPU --------------------------------------------------------
+# ---------------------------------------------------------------------------
+# The CPU dispatcher differentiates the plain versions with autograd; their
+# gradients against ``jax.grad`` of the reference's oracle on the same
+# inputs and output gradient.  f32: the same products summed in other
+# orders (einsums, softmax reductions): 1e-4 x (1 + |grad|).  The backward
+# kernels on the card are held to these plain versions in
+# ``test_torch_kernels_cuda.py``.
+GRAD_TOL = 1e-4
+
+
+def _jax_grads(fn, arrays, dout):
+    _, vjp = jax.vjp(fn, *[jnp.asarray(a) for a in arrays])
+    return [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+
+def _torch_grads(fn, arrays, dout):
+    leaves = [torch.tensor(a, requires_grad=True) for a in arrays]
+    out = fn(*leaves)
+    return [g.numpy() for g in torch.autograd.grad(out, leaves,
+                                                   torch.from_numpy(dout))]
+
+
+def _assert_grads(got, want, tol=GRAD_TOL):
+    for g, w in zip(got, want):
+        assert np.all(np.abs(g - w) <= tol * (1 + np.abs(w))), (
+            float(np.abs(g - w).max()))
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", SWEEP)
+@pytest.mark.parametrize("window", [None, 64])
+def test_gradients_match_reference_oracle(b, hq, hkv, s, d, window):
+    arrays = _inputs(b, hq, hkv, s, d, seed=11)
+    dout = np.random.default_rng(12).normal(size=(b, hq, s, d)).astype(
+        np.float32)
+    want = _jax_grads(lambda q, k, v: jax_ref.attention(
+        q, k, v, causal=True, window=window), arrays, dout)
+    for fn in (ops.attention, lambda q, k, v, **kw: ref.blocked_attention(
+            q, k, v, block=64, **kw)):
+        got = _torch_grads(lambda q, k, v: fn(q, k, v, causal=True,
+                                              window=window), arrays, dout)
+        _assert_grads(got, want)
+
+
+def test_blocked_gradient_at_4096_matches_reference():
+    """S = 4096 sends the CPU dispatcher to the blocked form, whose
+    KV-block step is checkpointed; its gradient against ``jax.grad`` of
+    the reference's blocked form (also checkpointed)."""
+    arrays = _inputs(1, 2, 1, 4096, 16, seed=13)
+    dout = np.random.default_rng(14).normal(size=(1, 2, 4096, 16)).astype(
+        np.float32)
+    want = _jax_grads(lambda q, k, v: jax_ref.blocked_attention(
+        q, k, v, causal=True, block=1024), arrays, dout)
+    got = _torch_grads(lambda q, k, v: ops.attention(q, k, v, causal=True),
+                       arrays, dout)
+    _assert_grads(got, want)
+
+
+def test_blocked_gradient_recomputes_each_block():
+    """The checkpoint recomputes each block's step in backward: the step's
+    einsum over keys runs twice per block under grad, once without."""
+    q, k, v = (torch.tensor(a, requires_grad=True)
+               for a in _inputs(1, 1, 1, 256, 16, seed=15))
+    calls = []
+    real = torch.einsum
+
+    def counted(eq, *args):
+        if eq == "bhqd,bhkd->bhqk":
+            calls.append(1)
+        return real(eq, *args)
+
+    torch.einsum = counted
+    try:
+        out = ref.blocked_attention(q, k, v, block=64)
+        forward_calls = len(calls)
+        out.sum().backward()
+    finally:
+        torch.einsum = real
+    assert forward_calls == 4 and len(calls) == 8
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in (q, k, v))
+
+
+def test_backward_wrapper_rejects_cpu_tensor():
+    q, k, v = _torch(_inputs(1, 2, 1, 64, 16), "float32")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.flash_attention_backward(q, k, v, q, q)

@@ -40,7 +40,8 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                  "fl.federation.policies", "fl.baselines",
                  "serve.router", "serve.gateway", "serve.__main__",
                  "obs.report", "obs.__main__", "checkpoint.ckpt",
-                 "checkpoint.engine"):
+                 "checkpoint.engine", "optim.sgd", "optim.adam",
+                 "optim.api"):
         assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -414,3 +414,184 @@ def test_wkv6_rejects_what_it_does_not_take(cuda_device):
                                      "float32")
     with pytest.raises(ValueError):
         wkv_kernel.wkv(r2, k2, v2, w2, u2)
+
+
+# ---------------------------------------------------------------------------
+# backward kernels ------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# Each backward kernel against autograd through its plain version on the
+# card, on the same input values, the oracle in float32 (bf16 inputs
+# widened exactly): autograd in bf16 would round every contribution to a
+# gradient of an input used at many steps (wkv's u) to bf16 before
+# summing them.  f32: both sum f32 products in other orders (the kernels
+# per tile, autograd per einsum); 1e-4 x (1 + |grad|).  bf16: the kernel
+# sums in f32 and rounds each gradient to bf16 once (2**-8 relative); it
+# also reads the forward's bf16-rounded output for delta (flash): 2e-2 x
+# (1 + |grad|) holds a gradient summed over 2048 rows relative to its
+# own size.
+GRAD_TOLERANCE = [("float32", 1e-4), ("bfloat16", 2e-2)]
+
+
+def _assert_grads_close(got, want, tol, names):
+    for name, a, b in zip(names, got, want):
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all(), name
+        err = (a - b).abs()
+        bound = tol * (1 + b.abs())
+        assert bool((err <= bound).all()), (
+            f"{name}: max err {float(err.max()):.3g}, worst ratio "
+            f"{float((err / bound).max()):.3g}")
+
+
+def _grads(fn, inputs, dout):
+    """Gradients of ``fn(*inputs)`` against ``dout``; zeros for an input
+    the output does not depend on (wkv's last decay)."""
+    leaves = [x.detach().requires_grad_() for x in inputs]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, dout, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for x, g in zip(leaves, grads)]
+
+
+def _flash_backward_case(device, b, hq, hkv, s, d, causal, window, dtype,
+                         tol, seed=0):
+    rng = np.random.default_rng(seed)
+    q = _normal(rng, (b, hq, s, d), device, dtype)
+    k = _normal(rng, (b, hkv, s, d), device, dtype)
+    v = _normal(rng, (b, hkv, s, d), device, dtype)
+    dout = _normal(rng, (b, hq, s, d), device, dtype)
+    before = fa_kernel.flash_attention_backward.launches
+    got = _grads(lambda *x: fa_ops.attention(*x, causal=causal,
+                                             window=window), (q, k, v),
+                 dout)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention_backward.launches == before + 1
+    want = _grads(lambda *x: fa_ref.attention(*x, causal=causal,
+                                              window=window),
+                  [x.float() for x in (q, k, v)], dout.float())
+    for g, x in zip(got, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+    _assert_grads_close(got, want, tol, ("dq", "dk", "dv"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,d", FLASH_SHAPES)
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("dtype,tol", GRAD_TOLERANCE)
+def test_flash_attention_backward_matches_autograd(cuda_device, b, hq, hkv,
+                                                   s, d, window, dtype, tol):
+    _flash_backward_case(cuda_device, b, hq, hkv, s, d, True, window, dtype,
+                         tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 63, 65, 200])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype,tol", GRAD_TOLERANCE)
+def test_flash_attention_backward_ragged_sequence(cuda_device, s, d, dtype,
+                                                  tol):
+    """S that no 64-row tile divides: the tiles' rows past S see no key
+    and must give nothing, not NaN, to any gradient."""
+    _flash_backward_case(cuda_device, 2, 4, 2, s, d, True, None, dtype, tol,
+                         seed=s + d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, 1), (True, 100),
+                                           (False, None), (False, 50)])
+@pytest.mark.parametrize("dtype,tol", GRAD_TOLERANCE)
+def test_flash_attention_backward_masks(cuda_device, causal, window, dtype,
+                                        tol):
+    """Window 1 (each row sees only itself), a window that no tile
+    divides, and the non-causal masks."""
+    _flash_backward_case(cuda_device, 1, 4, 2, 300, 64, causal, window,
+                         dtype, tol, seed=3)
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_llama_gqa(cuda_device):
+    """llama3.2-3b's 24 q-heads over 8 kv heads at its training length:
+    dk and dv sum three query heads over 2048 rows."""
+    _flash_backward_case(cuda_device, 1, 24, 8, 2048, 128, True, None,
+                         "bfloat16", 2e-2, seed=7)
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_is_deterministic(cuda_device):
+    rng = np.random.default_rng(9)
+    q = _normal(rng, (2, 4, 300, 64), cuda_device, "bfloat16")
+    k, v = (_normal(rng, (2, 2, 300, 64), cuda_device, "bfloat16")
+            for _ in range(2))
+    o = fa_kernel.flash_attention(q, k, v)
+    dout = _normal(rng, q.shape, cuda_device, "bfloat16")
+    first = fa_kernel.flash_attention_backward(q, k, v, o, dout)
+    second = fa_kernel.flash_attention_backward(q, k, v, o, dout)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_rejects_what_it_does_not_take(
+        cuda_device):
+    q = torch.zeros((1, 4, 64, 64), device=cuda_device)
+    k = torch.zeros((1, 2, 64, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_kernel.flash_attention_backward(q, k, k, q, q.transpose(2, 3))
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention_backward(q, k, k, q[:, :2], q)
+    with pytest.raises(TypeError):
+        fa_kernel.flash_attention_backward(*(t.double()
+                                             for t in (q, k, k, q, q)))
+
+
+def _wkv_backward_case(device, shape, dtype, tol, seed=0, w_lo=0.7):
+    r, k, v, w, u = _wkv_inputs(shape, device, dtype, seed=seed, w_lo=w_lo)
+    dout = _normal(np.random.default_rng(seed + 1), shape, device, dtype)
+    before = wkv_kernel.wkv_backward.launches
+    got = _grads(wkv_ops.wkv, (r, k, v, w, u), dout)
+    torch.cuda.synchronize()
+    assert wkv_kernel.wkv_backward.launches == before + 1
+    # the step-by-step scan is the oracle; at long T its chunked twin
+    plain = wkv_ref.wkv if shape[2] <= 256 else wkv_ref.wkv_chunked
+    want = _grads(plain, [x.float() for x in (r, k, v, w, u)],
+                  dout.float())
+    for g, x in zip(got, (r, k, v, w, u)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+    _assert_grads_close(got, want, tol, ("dr", "dk", "dv", "dw", "du"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WKV_SHAPES)
+@pytest.mark.parametrize("w_lo", [0.7, 0.0])
+@pytest.mark.parametrize("dtype,tol", GRAD_TOLERANCE)
+def test_wkv6_backward_matches_autograd(cuda_device, shape, w_lo, dtype,
+                                        tol):
+    _wkv_backward_case(cuda_device, shape, dtype, tol, w_lo=w_lo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 17, 65, 200, 1000])
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+@pytest.mark.parametrize("dtype,tol", GRAD_TOLERANCE)
+def test_wkv6_backward_strong_decays(cuda_device, t, d, dtype, tol):
+    """Decays down to exact zeros, lengths that no 64- or 8-step chunk
+    divides, every head dim: dw comes from recomputed states, never from
+    dividing by a decay."""
+    _wkv_backward_case(cuda_device, (2, 2, t, d), dtype, tol, seed=t + d,
+                       w_lo=0.0)
+
+
+@pytest.mark.cuda
+def test_wkv6_backward_rwkv_shape(cuda_device):
+    """rwkv6-1.6b's head dim at its training length, decays down to 0."""
+    _wkv_backward_case(cuda_device, (1, 4, 2048, 64), "bfloat16", 2e-2,
+                       seed=5, w_lo=0.0)
+
+
+@pytest.mark.cuda
+def test_wkv6_backward_rejects_what_it_does_not_take(cuda_device):
+    r, k, v, w, u = _wkv_inputs((1, 2, 16, 16), cuda_device, "float32")
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_kernel.wkv_backward(r, k, v, w, u, r.transpose(2, 3))
+    with pytest.raises(ValueError):
+        wkv_kernel.wkv_backward(r, k, v, w, u, r[:, :1])

@@ -4,11 +4,14 @@ CPU in float32.
 For reduced configs of every family this slice ports — ``llama3.2-3b``
 (GQA, window 64 so that S = 128 exercises it), ``olmo-1b``
 (non-parametric LN, MHA), ``qwen3-32b`` (qk-norm), ``musicgen-medium``
-(embeddings input) and ``rwkv6-1.6b`` (the RWKV6 block) — the reference's
-random params go through ``transformer_params_from_jax`` and both
-packages run the same numpy inputs: ``forward`` / ``logits_fn`` over a
-sequence, and ``serve_step`` token by token with its caches.  The
-reference is called directly, without a mesh.
+(embeddings input), ``rwkv6-1.6b`` (the RWKV6 block),
+``deepseek-coder-33b`` (GQA, llama architecture) and ``internvl2-1b``
+(GQA over embeddings input) — the reference's random params go through
+``transformer_params_from_jax`` and both packages run the same numpy
+inputs: ``forward`` / ``logits_fn`` over a sequence, and ``serve_step``
+token by token with its caches; and, for the dense configs that
+``test_torch_train.py`` does not cover, ``loss_fn`` and the gradient of
+every leaf.  The reference is called directly, without a mesh.
 
 Tolerance 1e-4 (abs and rel) on hidden states and logits of magnitude
 ~1-4: the two packages sum the same f32 products in other orders (matmul
@@ -30,9 +33,21 @@ from repro_torch.convert import (transformer_params_from_jax,
 from repro_torch.models import transformer as T
 
 CONFIGS = ["llama3.2-3b", "olmo-1b", "qwen3-32b", "musicgen-medium",
-           "rwkv6-1.6b"]
+           "rwkv6-1.6b", "deepseek-coder-33b", "internvl2-1b"]
 TOL = 1e-4
 SEQ = 128
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's many small CPU ops: as fast
+    alone, and under the suite's parallel workers it keeps torch's thread
+    pool from oversubscribing the cores (which slowed these tests
+    tenfold); the previous count is restored afterwards."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _cfgs(name):
@@ -232,3 +247,36 @@ def test_converter_keeps_bf16_and_checks_shapes():
         "mixer"]["wq"][:, :-1]
     with pytest.raises(ValueError, match="wq"):
         transformer_params_from_jax(cfg, tree, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "qwen3-32b", "musicgen-medium",
+                                  "deepseek-coder-33b", "internvl2-1b"])
+def test_loss_gradients_match_reference(name):
+    """``loss_fn`` and the gradient of every leaf against
+    ``jax.value_and_grad`` of the reference's, at the file's ``TOL`` x
+    (1 + |grad|): the same products summed in other orders, forward and
+    backward (llama3.2-3b and rwkv6-1.6b are in ``test_torch_train.py``).
+    """
+    jcfg, cfg = _cfgs(name)
+    jtree, tree = _jax_params(jcfg, seed=6)
+    rng = np.random.default_rng(6)
+    x = _inputs(cfg, 2, SEQ, seed=6)
+    labels = rng.integers(0, cfg.vocab_size, size=(2, SEQ)).astype(np.int32)
+    (loss, _), want = jax.value_and_grad(JT.loss_fn, has_aux=True)(
+        jtree, jcfg, {"inputs": jnp.asarray(x),
+                      "labels": jnp.asarray(labels)})
+    params = transformer_params_from_jax(cfg, tree, device="cpu")
+    grads, metrics = T.loss_and_grads(
+        params, cfg, {"inputs": _torch_inputs(x),
+                      "labels": torch.from_numpy(labels)})
+    np.testing.assert_allclose(float(metrics["loss"]), float(loss),
+                               rtol=TOL)
+    got = dict(jax.tree_util.tree_leaves_with_path(
+        transformer_params_to_numpy(cfg, grads)))
+    flat = jax.tree_util.tree_leaves_with_path(want)
+    assert len(got) == len(flat)
+    for path, w in flat:
+        w = np.asarray(w)
+        err = np.abs(got[path] - w)
+        assert np.all(err <= TOL * (1 + np.abs(w))), (
+            jax.tree_util.keystr(path), float(err.max()))

@@ -7,6 +7,7 @@ on the CPU, over the reference's sweep and tolerance
 (``tests/test_kernels.py``: 1e-4).  The CUDA kernel itself runs only on
 a card: its tests are in ``test_torch_kernels_cuda.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -182,3 +183,63 @@ def test_dispatcher_chunked_form_at_strong_decays():
     np.testing.assert_allclose(
         got, np.asarray(jax_ref.wkv(*map(jnp.asarray, arrays))), rtol=1e-4,
         atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# gradients on the CPU --------------------------------------------------------
+# ---------------------------------------------------------------------------
+# The CPU dispatcher differentiates the plain versions with autograd; their
+# gradients (of r, k, v, w and u) against ``jax.grad`` of the reference's
+# scan oracle on the same inputs and output gradient, 1e-4 x (1 + |grad|):
+# the same f32 products summed in other orders.  The backward kernels on
+# the card are held to these plain versions in
+# ``test_torch_kernels_cuda.py``.
+GRAD_TOL = 1e-4
+
+
+def _grads_both(arrays, dout, fn):
+    _, vjp = jax.vjp(jax_ref.wkv, *[jnp.asarray(a) for a in arrays])
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+    leaves = [torch.tensor(a, requires_grad=True) for a in arrays]
+    got = torch.autograd.grad(fn(*leaves), leaves, torch.from_numpy(dout))
+    return [g.numpy() for g in got], want
+
+
+def _assert_grads(got, want):
+    for name, g, w in zip("rkvwu", got, want):
+        assert g.shape == w.shape
+        assert np.all(np.abs(g - w) <= GRAD_TOL * (1 + np.abs(w))), (
+            name, float(np.abs(g - w).max()))
+
+
+@pytest.mark.parametrize("b,h,t,d", [(1, 1, 32, 8), (2, 3, 64, 16),
+                                     (1, 2, 128, 64), (2, 2, 96, 32)])
+@pytest.mark.parametrize("zeros", [False, True])
+def test_gradients_match_reference_oracle(b, h, t, d, zeros):
+    """The scan the dispatcher takes below T = 256, also with decays of
+    exactly 0."""
+    arrays = _inputs(b, h, t, d, seed=20, w_lo=0.0 if zeros else 0.7,
+                     zeros=zeros)
+    dout = np.random.default_rng(21).normal(size=(b, h, t, d)).astype(
+        np.float32)
+    got, want = _grads_both(arrays, dout, ops.wkv)
+    _assert_grads(got, want)
+
+
+def test_chunked_gradient_matches_reference_oracle():
+    """T = 256 sends the dispatcher to ``wkv_chunked``: its gradient
+    against ``jax.grad`` of the reference's scan, at mild decays."""
+    arrays = _inputs(1, 2, 256, 16, seed=22, w_lo=0.9)
+    dout = np.random.default_rng(23).normal(size=(1, 2, 256, 16)).astype(
+        np.float32)
+    got, want = _grads_both(arrays, dout, ops.wkv)
+    _assert_grads(got, want)
+    got_chunk, _ = _grads_both(arrays, dout, lambda *x: ref.wkv_chunked(
+        *x, chunk=32))
+    _assert_grads(got_chunk, want)
+
+
+def test_backward_wrapper_rejects_cpu_tensor():
+    r, k, v, w, u = _torch(_inputs(1, 2, 16, 16))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.wkv_backward(r, k, v, w, u, r)
