@@ -10,8 +10,9 @@ Phases, each printed as one JSON object on its own line:
 1. ``card``: the card's name and power limit (nvidia-smi), the CUDA
    version, and the build of every hand-written kernel from the sources
    in this checkout (one nvcc per source, all started together), with
-   each kernel's registers and spills from ptxas; the tensor-core
-   attention kernel must not spill.
+   each kernel's registers and spills from ptxas; no tensor-core kernel
+   (``wgmma`` in its name: the attention forward and the two attention
+   backward kernels) may spill, and the backward's must be there.
 2. ``main_path``: the port's FL round loop at the paper's default setup
    (``run_fl(FLConfig(n_rounds=3))``: MNIST CNN, 50 devices, 5 air
    nodes, H=5, batched on the card), with every kernel's launch count
@@ -101,9 +102,9 @@ Phases, each printed as one JSON object on its own line:
     (forward and remat recompute) and 1 ``flash_attention_backward``;
     step wall, tokens/s, peak memory, and one more step under the
     profiler (busy share, GEMMs, elementwise, attention forward and
-    backward); then at 2 layers of full width one step's gradients
-    through the kernels against the same step through the plain
-    versions, in float32 (each leaf within ``TRAIN_GRAD_TOL`` of its
+    backward, the backward by kernel: delta, dK/dV, dQ); then at 2
+    layers of full width one step's gradients through the kernels
+    against the same step through the plain versions, in float32 (each leaf within ``TRAIN_GRAD_TOL`` of its
     norm) and in bf16 (no more than twice the plain bf16 step's own
     distance from the float32 one, plus 1e-2).
 19. ``rwkv6_train``: the same for full-width ``rwkv6-1.6b`` (24 layers,
@@ -118,7 +119,12 @@ Phases, each printed as one JSON object on its own line:
     input values) at the training shapes, bf16 and f32 (wkv with decays
     down to 0), with times beside the plain version's backward and, for
     attention, ``scaled_dot_product_attention``'s backward, and
-    ``bound_ms``.
+    ``bound_ms``.  For attention also: the forward's log-sum-exp against
+    ``ref.row_lse`` and its output bit for bit against the forward
+    without it, the design each call ran on (bf16 the tensor cores, f32
+    the CUDA cores), two calls bit-identical, the achieved TFLOP/s, the
+    share of the bound (the function's five products) and of the
+    design's own floor (seven products: S and dP in both kernels).
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after; ``fedavg_agg``'s count in the kernel
@@ -257,12 +263,20 @@ def phase_card(kernels):
                     for lib, ptxas in zip(libs, reports)},
           "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                    "cudnn": torch.backends.cudnn.allow_tf32}})
-    spilled = [name for ptxas in reports for name, rec in ptxas.items()
-               if "wgmma" in name and name != "notes"
-               and (rec["spill_stores"] or rec["spill_loads"])]
+    tensor_core = [(name, rec) for ptxas in reports
+                   for name, rec in ptxas.items()
+                   if "wgmma" in name and name != "notes"]
+    spilled = [name for name, rec in tensor_core
+               if rec["spill_stores"] or rec["spill_loads"]]
     if spilled:
         raise RuntimeError(f"the tensor-core kernel spills registers: "
                            f"{spilled}")
+    missing = [kind for kind in ("flash_attention_wgmma", "dkdv_wgmma",
+                                 "dq_wgmma")
+               if not any(kind in name for name, _ in tensor_core)]
+    if missing:
+        raise RuntimeError(f"the spill check found no {missing} kernel in "
+                           f"the builds")
 
 
 def ptxas_report(log: str) -> dict:
@@ -1591,9 +1605,16 @@ def phase_wkv_kernel(wkv_kernel, wkv_ref, main_shape):
 # The backward kernels against autograd through their plain versions in
 # float32 on the same input values (tests/test_torch_kernels_cuda.py):
 # f32 1e-4 x (1 + |grad|) (the same products summed in other orders);
-# bf16 2e-2 x (1 + |grad|) (each gradient rounded to bf16 once, and flash
-# reads the forward's bf16-rounded output for delta)
+# bf16 2e-2 x (1 + |grad|) (each gradient rounded to bf16 once; flash
+# also rounds P and dZ to bf16 as operands of its tensor-core products
+# and reads the forward's bf16-rounded output for delta)
 GRAD_TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
+# The forward's log-sum-exp against ref.row_lse: the same f32 sums of the
+# same inputs in other orders
+LSE_TOLERANCE = 1e-5
+# The design each backward call runs on, by type
+FLASH_BACKWARD_VARIANT = {"bfloat16": "tensor_cores",
+                          "float32": "cuda_cores"}
 # wkv f32 at T = 2048: each gradient sums up to ~1,000 decayed terms of
 # size up to ~100 (decays near 1 keep long windows), so two f32 orders,
 # the kernel's sequential scan and the plain version's chunked products,
@@ -1679,16 +1700,29 @@ def _flash_backward_case(fa_kernel, fa_ref, q_shape, hkv, window,
     k = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
     v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
     dout = torch.randn(q_shape, generator=gen, device="cuda").to(dtype)
-    o = fa_kernel.flash_attention(q, k, v, causal=True, window=window)
-    got = fa_kernel.flash_attention_backward(q, k, v, o, dout, causal=True,
-                                             window=window)
+    o, lse = fa_kernel.flash_attention(q, k, v, causal=True, window=window,
+                                       return_lse=True)
+    same_out = torch.equal(o, fa_kernel.flash_attention(
+        q, k, v, causal=True, window=window))
+    lse_err = float((lse - fa_ref.row_lse(q, k, causal=True, window=window))
+                    .abs().max())
+    before = fa_kernel.backward_variant_launches()
+    got = fa_kernel.flash_attention_backward(q, k, v, o, lse, dout,
+                                             causal=True, window=window)
+    torch.cuda.synchronize()
+    after = fa_kernel.backward_variant_launches()
+    variants = {name: after[name] - before[name] for name in after}
+    again = fa_kernel.flash_attention_backward(q, k, v, o, lse, dout,
+                                               causal=True, window=window)
+    bit_identical = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
     want = _kept_grad(lambda *x: fa_ref.attention(*x, causal=True,
                                                   window=window),
                       [x.float() for x in (q, k, v)], dout.float())()
     tol = GRAD_TOLERANCE[dtype_name]
     err, ok = _grad_check(got, want, tol)
     scale = max(float(w.abs().max()) for w in want)
-    del want
+    del want, got
     _free()
     idx = torch.arange(s, device="cuda")
     if window is None or window >= s:
@@ -1706,12 +1740,13 @@ def _flash_backward_case(fa_kernel, fa_ref, q_shape, hkv, window,
         pairs = int(mask.sum())
     # q, o, do read and dq written; k, v read and dk, dv written; the
     # work 2.5x the forward's (2 FLOP per multiply-add of q.k and p.v
-    # over the unmasked pairs)
+    # over the unmasked pairs: the five products q.k, do.v, P^T do,
+    # dZ^T q, dZ k)
     nbytes = 4 * (q.numel() + k.numel()) * q.element_size()
     ops = 2.5 * 4 * d * pairs * b * hq
     big = nbytes > 50e6
     times = _backward_times(
-        lambda: fa_kernel.flash_attention_backward(q, k, v, o, dout,
+        lambda: fa_kernel.flash_attention_backward(q, k, v, o, lse, dout,
                                                    causal=True,
                                                    window=window),
         _kept_grad(lambda *x: fa_ref.attention(*x, causal=True,
@@ -1719,10 +1754,24 @@ def _flash_backward_case(fa_kernel, fa_ref, q_shape, hkv, window,
                    (q, k, v), dout),
         _kept_grad(sdpa, (q, k, v), dout), big)
     bound = _bound(nbytes, ops, dtype_name)
+    # the design's own floor: seven products (S and dP in both kernels)
+    floor_ms = 1.4 * ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    want_variant = FLASH_BACKWARD_VARIANT[dtype_name]
+    right_variant = variants == {
+        name: int(name == want_variant) for name in variants}
     rec = {"q_shape": list(q_shape), "kv_heads": hkv, "window": window,
            "dtype": dtype_name, "max_abs_err": err,
-           "max_abs_grad": scale, "tolerance": tol, "ok": ok, **times,
-           **bound, "bound_share": bound["bound_ms"] / times["kernel_ms"]}
+           "max_abs_grad": scale, "tolerance": tol,
+           "lse_max_abs_err": lse_err, "lse_tolerance": LSE_TOLERANCE,
+           "forward_with_lse_bit_identical": same_out,
+           "variant_launches": variants, "bit_identical": bit_identical,
+           "ok": (ok and right_variant and bit_identical and same_out
+                  and lse_err <= LSE_TOLERANCE),
+           **times, **bound,
+           "kernel_tflops": ops / times["kernel_ms"] / 1e9,
+           "bound_share": bound["bound_ms"] / times["kernel_ms"],
+           "design_floor_ms": floor_ms,
+           "design_floor_share": floor_ms / times["kernel_ms"]}
     _free()
     return rec
 
@@ -1751,7 +1800,9 @@ def phase_flash_backward_kernel(fa_kernel, fa_ref, train_shapes):
     bad = [k for k, v in cases.items() if not v["ok"]]
     if bad:
         raise RuntimeError(f"flash_attention backward disagrees with "
-                           f"autograd through its plain version: {bad}")
+                           f"autograd through its plain version, ran on "
+                           f"another design, differs between two calls, "
+                           f"or the forward's log-sum-exp is off: {bad}")
     return cases["main"]
 
 
@@ -1991,7 +2042,9 @@ def _train_phase(launchers, phase, name, kernels, batch=4, seq=2048,
            "launches_per_step": {k: counts[k] / steps for k in kernels},
            **_share(by_name, prof_wall, "gemm", "nvjet", "elementwise",
                     "reduce", *({"flash_attention": ("flash_attention",
-                                                     "fa_bwd"),
+                                                     "fa_bwd", "fa_bwd_prep",
+                                                     "dkdv_wgmma",
+                                                     "dq_wgmma"),
                                  "wkv6": ("wkv6_chunked", "wkv6_bwd")}[fwd])),
            "vs_plain_2_layers": versus, "ok": ok and versus["ok"]}
     emit({"phase": phase, **rec})
@@ -2209,7 +2262,7 @@ def main() -> int:
                      "src/repro/kernels/flash_attention/kernel.py:76",
                      fa_launches, fa_case),
         _kernel_line("flash_attention_backward", "src/repro_torch/kernels/"
-                     "flash_attention/csrc/flash_attention_bwd.cu",
+                     "flash_attention/csrc/flash_attention_bwd_wgmma.cuh",
                      "src/repro/kernels/flash_attention/kernel.py:76",
                      fa_bwd_launches, fa_bwd_case),
         _kernel_line("wkv6", "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",

@@ -20,14 +20,15 @@ def graph_ms(graph, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def in_turns(module: str, builds: Sequence[str], rounds: int) -> int:
-    """``python -m module --one BUILD`` for each build, in turns A, B, ...
-    then ..., B, A; the exit codes or-ed."""
+def in_turns(module: str, builds: Sequence[str], rounds: int,
+             extra: Sequence[str] = ()) -> int:
+    """``python -m module --one BUILD *extra`` for each build, in turns
+    A, B, ... then ..., B, A; the exit codes or-ed."""
     order = []
     for r in range(rounds):
         order += list(builds) if r % 2 == 0 else list(builds)[::-1]
     rc = 0
     for build in order:
-        rc |= subprocess.run([sys.executable, "-m", module, "--one",
-                              build]).returncode
+        rc |= subprocess.run([sys.executable, "-m", module, "--one", build,
+                              *extra]).returncode
     return rc

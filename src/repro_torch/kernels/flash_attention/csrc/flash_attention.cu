@@ -35,6 +35,12 @@
 //   that the causal or window mask empties entirely are skipped (half the
 //   work of a causal prefill); the query tiles with the most keys are
 //   scheduled first.
+//
+// Given an f32 (B, Hq, S) buffer, both kernels also write each row's
+// log-sum-exp of its scores times log2(e) (base 2; -inf for a row with no
+// allowed key), which the backward (flash_attention_bwd.cu) reads; the
+// entry point flash_attention_lse_launch takes it, flash_attention_launch
+// (prefill) does not.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,9 +87,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int Hq,
-                       int Hkv, int S, int causal, int window,
-                       float scale_log2) {
+                       float* __restrict__ lse, int Hq, int Hkv, int S,
+                       int causal, int window, float scale_log2) {
   constexpr int kLd = D + 1;       // odd word stride: no bank conflicts
   constexpr int kLdP = kBK + 1;
   constexpr int kNJ = D / 16;      // output dims per thread
@@ -203,12 +208,16 @@ flash_attention_kernel(const float* __restrict__ q,
     float* dst = out + q_base + static_cast<int64_t>(row) * D;
 #pragma unroll
     for (int j = 0; j < kNJ; ++j) dst[tx + 16 * j] = acc[i][j] / safe;
+    if (lse != nullptr && tx == 0) {
+      lse[(static_cast<int64_t>(b) * Hq + h) * S + row] =
+          l[i] == 0.f ? __int_as_float(0xff800000) : m[i] + log2f(l[i]);
+    }
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int S, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Hq, int Hkv, int S, int causal, int window,
            cudaStream_t stream) {
   constexpr int kLd = D + 1;
   const size_t smem =
@@ -222,19 +231,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
   flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, S,
-      causal, window, scale_log2);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Hq, Hkv,
+      S, causal, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_f32(const void* q, const void* k, const void* v, void* out,
-                 int B, int Hq, int Hkv, int S, int D, int causal,
-                 int window, cudaStream_t s) {
+                 float* lse, int B, int Hq, int Hkv, int S, int D,
+                 int causal, int window, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<16>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
-    case 32: return launch<32>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
-    case 64: return launch<64>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
-    case 128: return launch<128>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
+    case 16: return launch<16>(q, k, v, out, lse, B, Hq, Hkv, S, causal, window, s);
+    case 32: return launch<32>(q, k, v, out, lse, B, Hq, Hkv, S, causal, window, s);
+    case 64: return launch<64>(q, k, v, out, lse, B, Hq, Hkv, S, causal, window, s);
+    case 128: return launch<128>(q, k, v, out, lse, B, Hq, Hkv, S, causal, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -242,6 +251,24 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* out,
 // launches that succeeded, by kernel: 0 = CUDA cores (f32), 1 = tensor
 // cores (bf16)
 unsigned long long g_launches[2] = {0, 0};
+
+int launch_any(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int Hq, int Hkv, int S, int D, int causal,
+               int window, int dtype, void* stream) {
+  if (B < 1 || B > 65535 || Hq < 1 || Hq > 65535 || Hkv < 1 ||
+      Hq % Hkv != 0 || S < 1 || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rc =
+      dtype == 0
+          ? dispatch_f32(q, k, v, out, lse, B, Hq, Hkv, S, D, causal, window,
+                         s)
+          : fa_wgmma::dispatch(q, k, v, out, lse, B, Hq, Hkv, S, D, causal,
+                               window, s);
+  if (rc == 0) ++g_launches[dtype];
+  return rc;
+}
 
 }  // namespace
 
@@ -255,18 +282,20 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int Hq, int Hkv, int S, int D,
                                       int causal, int window, int dtype,
                                       void* stream) {
-  if (B < 1 || B > 65535 || Hq < 1 || Hq > 65535 || Hkv < 1 ||
-      Hq % Hkv != 0 || S < 1 || (dtype != 0 && dtype != 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc =
-      dtype == 0
-          ? dispatch_f32(q, k, v, out, B, Hq, Hkv, S, D, causal, window, s)
-          : fa_wgmma::dispatch(q, k, v, out, B, Hq, Hkv, S, D, causal,
-                               window, s);
-  if (rc == 0) ++g_launches[dtype];
-  return rc;
+  return launch_any(q, k, v, out, nullptr, B, Hq, Hkv, S, D, causal, window,
+                    dtype, stream);
+}
+
+// The same, also writing each row's log-sum-exp into lse ((B, Hq, S) f32,
+// 16-byte aligned), for the backward.
+extern "C" int flash_attention_lse_launch(const void* q, const void* k,
+                                          const void* v, void* out,
+                                          float* lse, int B, int Hq, int Hkv,
+                                          int S, int D, int causal,
+                                          int window, int dtype,
+                                          void* stream) {
+  return launch_any(q, k, v, out, lse, B, Hq, Hkv, S, D, causal, window,
+                    dtype, stream);
 }
 
 // How many launches of kernel `variant` (0 = CUDA cores, 1 = tensor

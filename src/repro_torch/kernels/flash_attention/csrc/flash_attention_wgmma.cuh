@@ -58,6 +58,11 @@
 //   span, so each tile loads as two 64-column boxes (each rows x 128 B) and
 //   the descriptors step between them.  D = 64 is one 128-B box, D = 32 one
 //   64-B box (64-B swizzle), D = 16 one 32-B box (32-B swizzle).
+// - For training, the kernel also writes each row's log-sum-exp (base 2,
+//   of the scores times log2(e); -inf for a row with no key) into an f32
+//   (B, Hq, S) buffer when it is given one, after the item's last tile:
+//   the backward (flash_attention_bwd_wgmma.cuh) reads it instead of
+//   recomputing it.  A null pointer skips the write (prefill).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; types only, no -lcuda
@@ -467,9 +472,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_wgmma(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
-                          __nv_bfloat16* __restrict__ out, int B, int Hq,
-                          int Hkv, int S, int causal, int window,
-                          float scale_log2) {
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int B, int Hq, int Hkv,
+                          int S, int causal, int window, float scale_log2) {
   using T = Tile<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;  // 2 Q tiles
@@ -649,6 +654,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
       const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+      if (lse != nullptr && (lane & 3) == 0) {
+        const float none = __int_as_float(0xff800000);  // -inf: no key
+        float* dst_lse = lse + static_cast<int64_t>(wk.q_plane) * S + row;
+        if (row < S)
+          dst_lse[0] = l0 == 0.f ? none : fmaf(m0, scale_log2, log2f(l0));
+        if (row + 8 < S)
+          dst_lse[8] = l1 == 0.f ? none : fmaf(m1, scale_log2, log2f(l1));
+      }
       __nv_bfloat16* dst =
           out + (static_cast<int64_t>(wk.q_plane) * S + row) * D + qcol;
 #pragma unroll
@@ -751,8 +764,8 @@ inline cudaError_t sm_count(int* sms) {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int S, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Hq, int Hkv, int S, int causal, int window,
            cudaStream_t stream) {
   using T = Tile<D>;
   // one persistent block an SM, each walking its share of the items
@@ -774,19 +787,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
   const int grid = static_cast<int>(n_items < sms ? n_items : sms);
   flash_attention_wgmma<D><<<grid, kThreads, T::kSmem, stream>>>(
-      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), B, Hq, Hkv, S,
-      causal, window, scale_log2);
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), lse, B, Hq, Hkv,
+      S, causal, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
+// lse: null, or (B, Hq, S) f32 for each row's log-sum-exp
 inline int dispatch(const void* q, const void* k, const void* v, void* out,
-                    int B, int Hq, int Hkv, int S, int D, int causal,
-                    int window, cudaStream_t s) {
+                    float* lse, int B, int Hq, int Hkv, int S, int D,
+                    int causal, int window, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<16>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
-    case 32: return launch<32>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
-    case 64: return launch<64>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
-    case 128: return launch<128>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
+    case 16: return launch<16>(q, k, v, out, lse, B, Hq, Hkv, S, causal, window, s);
+    case 32: return launch<32>(q, k, v, out, lse, B, Hq, Hkv, S, causal, window, s);
+    case 64: return launch<64>(q, k, v, out, lse, B, Hq, Hkv, S, causal, window, s);
+    case 128: return launch<128>(q, k, v, out, lse, B, Hq, Hkv, S, causal, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

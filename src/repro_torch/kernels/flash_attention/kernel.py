@@ -10,12 +10,17 @@ type alone: bfloat16 runs on the tensor cores
 wrapper checks what the kernels take and raises on anything else,
 allocates the output, launches on the current stream and never
 synchronizes.  ``flash_attention.launches`` counts launches;
-:func:`variant_launches` reads the C entry point's count by kernel.
+:func:`variant_launches` reads the C entry point's count by kernel.  With
+``return_lse`` the forward also returns each row's log-sum-exp (base 2,
+f32) for the backward.
 
 :func:`flash_attention_backward` wraps the gradient kernels
-(``csrc/flash_attention_bwd.cu``, a library of its own): dq, dk and dv
-from q, k, v, the forward's output and its gradient, in three launches
-counted once in ``flash_attention_backward.launches``.
+(``csrc/flash_attention_bwd.cu``, a library of its own, which sends
+bfloat16 to ``csrc/flash_attention_bwd_wgmma.cuh`` on the tensor cores
+and float32 to the CUDA cores): dq, dk and dv from q, k, v, the forward's
+output and log-sum-exp and the output's gradient, in three launches
+counted once in ``flash_attention_backward.launches``;
+:func:`backward_variant_launches` reads its count by design.
 """
 from __future__ import annotations
 
@@ -47,6 +52,16 @@ def build():
 
 
 @functools.lru_cache(maxsize=None)
+def build_lse():
+    """Bind the entry point that also writes the rows' log-sum-exp."""
+    fn = load_library(SOURCE).flash_attention_lse_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
 def build_backward():
     """Compile (at first use) and bind the backward's C entry point."""
     fn = load_library(SOURCE_BWD).flash_attention_backward_launch
@@ -69,6 +84,22 @@ def variant_launches() -> dict:
     point counts them: ``cuda_cores`` (float32) and ``tensor_cores``
     (bfloat16).  Builds the library at first use."""
     fn = _variant_counter()
+    return {name: int(fn(i)) for i, name in enumerate(VARIANTS)}
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_variant_counter():
+    fn = load_library(SOURCE_BWD).flash_attention_backward_variant_launches
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_ulonglong
+    return fn
+
+
+def backward_variant_launches() -> dict:
+    """Backward calls that succeeded in this process, by design, as its C
+    entry point counts them: ``cuda_cores`` (float32) and
+    ``tensor_cores`` (bfloat16)."""
+    fn = _backward_variant_counter()
     return {name: int(fn(i)) for i, name in enumerate(VARIANTS)}
 
 
@@ -109,20 +140,28 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    return_lse: bool = False):
     """q: (B, Hq, S, D); k, v: (B, Hkv, S, D) on a CUDA device.
 
     Returns (B, Hq, S, D) in q's type; ``window`` keeps the keys
-    ``c > r - window`` of row ``r`` (None: no window)."""
+    ``c > r - window`` of row ``r`` (None: no window).  With
+    ``return_lse``, returns (out, lse): lse (B, Hq, S) f32, each row's
+    log-sum-exp of its scaled scores in base 2 (``ref.row_lse``), as the
+    backward takes it."""
     _check(q, k, v, window)
     b, hq, s, d = q.shape
     out = torch.empty_like(q)
-    launch = build()
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if return_lse:
+        lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+        launch = build_lse()
+        args.append(lse.data_ptr())
+    else:
+        launch = build()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    out.data_ptr(), b, hq, k.shape[1], s, d, int(causal),
+        rc = launch(*args, b, hq, k.shape[1], s, d, int(causal),
                     -1 if window is None else int(window), _DTYPES[q.dtype],
                     stream)
     if rc != 0:
@@ -130,7 +169,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, "
                            f"{q.dtype})")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
@@ -138,14 +177,18 @@ flash_attention.launches = 0
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
-                             do: torch.Tensor, causal: bool = True,
+                             lse: torch.Tensor, do: torch.Tensor,
+                             causal: bool = True,
                              window: Optional[int] = None):
     """Gradients of :func:`flash_attention` on a CUDA device.
 
     q, o, do: (B, Hq, S, D); k, v: (B, Hkv, S, D), all one type and
-    contiguous; ``o`` is the forward's output for the same arguments and
-    ``do`` the gradient of the loss with respect to it.  Returns (dq, dk,
-    dv) in q's type, dk and dv summed over each KV head's query heads."""
+    contiguous; ``o`` and ``lse`` are what the forward returned with
+    ``return_lse`` for the same arguments and ``do`` the gradient of the
+    loss with respect to ``o``.  Returns (dq, dk, dv) in q's type, dk and
+    dv summed over each KV head's query heads.  bfloat16 runs on the
+    tensor cores, float32 on the CUDA cores; a call either launches or
+    raises."""
     _check(q, k, v, window)
     for name, t in (("o", o), ("do", do)):
         if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
@@ -156,9 +199,14 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"flash_attention backward needs {name} "
                              f"contiguous and 16-byte aligned")
     b, hq, s, d = q.shape
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or lse.shape != (b, hq, s) or not lse.is_contiguous()
+            or lse.data_ptr() % 16):
+        raise ValueError(f"lse must be contiguous float32 {(b, hq, s)} on "
+                         f"{q.device}, 16-byte aligned, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    lse, delta = (torch.empty((b, hq, s), dtype=torch.float32,
-                              device=q.device) for _ in range(2))
+    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     launch = build_backward()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -13,23 +13,26 @@ from . import kernel, ref
 class FlashAttention(torch.autograd.Function):
     """The forward kernel, with the backward kernels as its gradient.
 
-    ``ctx`` keeps q, k, v and the output; ``backward`` hands them and the
-    output's gradient (made contiguous: it arrives as a transpose from
-    ``gqa_apply``) to :func:`kernel.flash_attention_backward`."""
+    ``ctx`` keeps q, k, v, the output and the rows' log-sum-exp that the
+    forward writes beside it (under remat, the recompute's); ``backward``
+    hands them and the output's gradient (made contiguous: it arrives as a
+    transpose from ``gqa_apply``) to
+    :func:`kernel.flash_attention_backward`."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        o = kernel.flash_attention(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = kernel.flash_attention(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
     @once_differentiable
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = kernel.flash_attention_backward(
-            q, k, v, o, do.contiguous(), causal=ctx.causal,
+            q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
             window=ctx.window)
         return dq, dk, dv, None, None
 

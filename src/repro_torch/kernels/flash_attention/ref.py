@@ -1,5 +1,6 @@
 """Plain PyTorch versions of causal (optionally sliding-window) GQA
-attention: the exact form and a KV-blocked online-softmax form."""
+attention: the exact form and a KV-blocked online-softmax form; and the
+rows' log-sum-exp that the forward kernels hand to the backward."""
 from __future__ import annotations
 
 import math
@@ -41,6 +42,23 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = probs / probs.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, vr)
     return out.to(q.dtype)
+
+
+def row_lse(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
+            window: Optional[int] = None) -> torch.Tensor:
+    """Each row's log-sum-exp of its scaled scores ``q . k / sqrt(D)`` over
+    its allowed keys, in base 2 (``logsumexp * log2(e)``), as f32
+    (B, Hq, S): what the forward kernels write for the backward, which
+    takes P = 2^(scores * log2(e) - lse).  A row with no allowed key gives
+    -inf (none exists below S: every row may see its own key)."""
+    b, hq, s, d = q.shape
+    kr = k.repeat_interleave(hq // k.shape[1], dim=1).to(torch.float32)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kr)
+    idx = torch.arange(s, device=q.device)
+    mask = _mask(idx[:, None], idx[None, :], causal, window)
+    scores = (scores * (1.0 / math.sqrt(d))).masked_fill(~mask,
+                                                          float("-inf"))
+    return torch.logsumexp(scores, dim=-1) * math.log2(math.e)
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

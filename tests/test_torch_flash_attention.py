@@ -6,9 +6,10 @@ interpret mode and its jnp oracle, and through the port's plain versions
 CPU, over the reference's sweep and tolerances (``tests/test_kernels.py``:
 f32 2e-5, bf16 5e-2).  The CUDA kernel itself runs only on a card: its
 tests are in ``test_torch_kernels_cuda.py``.  What this file can say of
-the card's bf16 kernel is its arithmetic: ``_tensor_core_emulation``
-repeats it in plain torch and is held to the tolerance the card's tests
-use.
+the card's bf16 kernels is their arithmetic: ``_tensor_core_emulation``
+(the forward, with the rows' log-sum-exp it writes) and
+``_tensor_core_backward_emulation`` (the backward) repeat it in plain
+torch and are held to the tolerances the card's tests use.
 """
 import math
 
@@ -131,12 +132,15 @@ def test_kernel_wrapper_rejects_cpu_tensor():
         kernel.flash_attention(q, k, v)
 
 
-def _tensor_core_emulation(q, k, v, causal=True, window=None, block=128):
+def _tensor_core_emulation(q, k, v, causal=True, window=None, block=128,
+                           return_lse=False):
     """The bf16 tensor-core kernel's arithmetic in plain torch: bf16
     inputs, f32 scores, an online softmax over tiles of ``block`` keys
     whose probabilities are rounded to bf16 before P.V, f32 accumulation
     and row sums of the unrounded probabilities, one bf16 rounding of
-    the output."""
+    the output.  With ``return_lse`` also each row's log-sum-exp as the
+    kernel writes it (base 2: the max of the scaled scores plus log2 of
+    the row sum; -inf for a row with no key)."""
     b, hq, s, d = q.shape
     group = hq // k.shape[1]
     qf = q.float()
@@ -164,8 +168,13 @@ def _tensor_core_emulation(q, k, v, causal=True, window=None, block=128):
             "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(),
             vf[:, :, c0:c0 + block])
         m = m_new
-    return (acc / torch.where(l == 0, torch.ones_like(l), l)).to(
+    out = (acc / torch.where(l == 0, torch.ones_like(l), l)).to(
         torch.bfloat16)
+    if not return_lse:
+        return out
+    lse = torch.where(l == 0, torch.full_like(l, -math.inf),
+                      m + torch.log2(l))
+    return out, lse[..., 0]
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
@@ -278,5 +287,128 @@ def test_blocked_gradient_recomputes_each_block():
 
 def test_backward_wrapper_rejects_cpu_tensor():
     q, k, v = _torch(_inputs(1, 2, 1, 64, 16), "float32")
+    lse = torch.zeros((1, 2, 64))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        kernel.flash_attention_backward(q, k, v, q, q)
+        kernel.flash_attention_backward(q, k, v, q, lse, q)
+
+
+# ---------------------------------------------------------------------------
+# the rows' log-sum-exp and the tensor-core backward's arithmetic -----------
+# ---------------------------------------------------------------------------
+LOG2E = math.log2(math.e)
+
+
+def _jax_row_lse(q, k, causal, window):
+    """``jax.nn.logsumexp`` of the reference's scaled, masked scores, in
+    base 2."""
+    b, hq, s, d = q.shape
+    kr = jnp.repeat(k, hq // k.shape[1], axis=1)
+    scores = jnp.einsum("bhqd,bhkd->bhqk", q, kr) / math.sqrt(d)
+    rows, cols = jnp.arange(s)[:, None], jnp.arange(s)[None, :]
+    ok = jnp.ones((s, s), bool)
+    if causal:
+        ok = ok & (cols <= rows)
+    if window is not None:
+        ok = ok & (cols > rows - window)
+    return np.asarray(jax.nn.logsumexp(jnp.where(ok, scores, -jnp.inf),
+                                       axis=-1)) * LOG2E
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", SWEEP)
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
+                                           (False, None), (False, 50)])
+def test_row_lse_matches_reference_logsumexp(b, hq, hkv, s, d, causal,
+                                            window):
+    """``ref.row_lse`` (what the forward kernels write for the backward)
+    against ``jax.nn.logsumexp`` of the reference's scaled scores, in
+    base 2, f32: 1e-5 x (1 + |lse|) (the same sums in other orders); and
+    the bf16 kernel's arithmetic (``_tensor_core_emulation``) against it
+    on the same bf16 inputs."""
+    arrays = _inputs(b, hq, hkv, s, d, seed=17)
+    tq, tk, _ = _torch(arrays, "float32")
+    got = ref.row_lse(tq, tk, causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == (b, hq, s)
+    want = _jax_row_lse(*_jax(arrays[:2], "float32"), causal, window)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    bq, bk, bv = _torch(arrays, "bfloat16")
+    _, lse = _tensor_core_emulation(bq, bk, bv, causal=causal,
+                                    window=window, return_lse=True)
+    np.testing.assert_allclose(
+        lse.numpy(), ref.row_lse(bq, bk, causal=causal,
+                                 window=window).numpy(), rtol=1e-5,
+        atol=1e-5)
+
+
+def test_row_lse_window_one_is_own_score():
+    """Property: with window=1 each row sees only its own key, so its
+    log-sum-exp is its own scaled score in base 2."""
+    q, k, _ = _torch(_inputs(1, 2, 1, 128, 16, seed=18), "float32")
+    own = (q * k).sum(dim=-1) / math.sqrt(16) * LOG2E
+    np.testing.assert_allclose(ref.row_lse(q, k, window=1).numpy(),
+                               own.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _tensor_core_backward_emulation(q, k, v, do, causal=True, window=None):
+    """The bf16 backward kernels' arithmetic in plain torch: bf16 inputs,
+    the forward's (emulated) bf16 output and log-sum-exp, delta =
+    rowsum(do o) in f32 from the bf16 output, f32 scores S and dP,
+    P = 2^(S log2(e) / sqrt(D) - lse) and dZ = P (dP - delta) in f32, each
+    rounded to bf16 as the A operand of its products (dV = P^T dO,
+    dK = dZ^T Q, dQ = dZ K), f32 sums, dK and dV summed over the group in
+    f32, one bf16 rounding of each gradient."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    o, lse = _tensor_core_emulation(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    scale = 1.0 / math.sqrt(d)
+    rows, cols = torch.arange(s)[:, None], torch.arange(s)[None, :]
+    ok = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        ok &= cols <= rows
+    if window is not None:
+        ok &= cols > rows - window
+    x = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * (LOG2E * scale)
+    p = torch.exp2(x - lse[..., None]).masked_fill(~ok, 0.0)
+    dz = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta)
+    pb, zb = (t.to(torch.bfloat16).float() for t in (p, dz))
+    dq = torch.einsum("bhqk,bhkd->bhqd", zb, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", zb, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", pb, dof)
+    dk, dv = (t.view(b, hkv, group, s, d).sum(dim=2) for t in (dk, dv))
+    return [t.to(torch.bfloat16) for t in (dq, dk * scale, dv)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (1, 2, 1, 2048, 128, True, None),   # llama3.2-3b's head dim and length
+    (1, 2, 1, 200, 64, True, None),     # ragged: no 64- or 128-row tile
+    (1, 2, 2, 200, 64, True, 64),
+    (1, 2, 1, 129, 128, False, None),
+])
+def test_tensor_core_backward_arithmetic_holds_card_tolerance(
+        b, hq, hkv, s, d, causal, window):
+    """The bf16 backward kernels round P and dZ to bf16 before their
+    products, where the CUDA-core kernels keep them in f32, and read the
+    forward's bf16 output (delta) and log-sum-exp: their arithmetic,
+    emulated here, stays within the card's bf16 tolerance 2e-2 x
+    (1 + |grad|) of ``jax.vjp`` of the reference's oracle and of the
+    port's autograd through ``ref.attention``, both in f32 on the same
+    bf16 values."""
+    arrays = _inputs(b, hq, hkv, s, d, seed=19)
+    dout = np.random.default_rng(20).normal(size=(b, hq, s, d)).astype(
+        np.float32)
+    tq, tk, tv, tdo = _torch([*arrays, dout], "bfloat16")
+    got = [_np(g) for g in _tensor_core_backward_emulation(
+        tq, tk, tv, tdo, causal=causal, window=window)]
+    values = [_np(t) for t in (tq, tk, tv)]
+    do32 = _np(tdo)
+    want_jax = _jax_grads(lambda q, k, v: jax_ref.attention(
+        q, k, v, causal=causal, window=window), values, do32)
+    want_port = _torch_grads(lambda q, k, v: ref.attention(
+        q, k, v, causal=causal, window=window), values, do32)
+    for want in (want_jax, want_port):
+        _assert_grads(got, want, tol=2e-2)

@@ -425,10 +425,12 @@ def test_wkv6_rejects_what_it_does_not_take(cuda_device):
 # gradient of an input used at many steps (wkv's u) to bf16 before
 # summing them.  f32: both sum f32 products in other orders (the kernels
 # per tile, autograd per einsum); 1e-4 x (1 + |grad|).  bf16: the kernel
-# sums in f32 and rounds each gradient to bf16 once (2**-8 relative); it
-# also reads the forward's bf16-rounded output for delta (flash): 2e-2 x
-# (1 + |grad|) holds a gradient summed over 2048 rows relative to its
-# own size.
+# sums in f32 and rounds each gradient to bf16 once (2**-8 relative); the
+# attention kernels (tensor cores) also round P and dZ to bf16 as the
+# operands of their products and read the forward's bf16-rounded output
+# for delta: 2e-2 x (1 + |grad|) holds a gradient summed over 2048 rows
+# relative to its own size (the arithmetic emulated on the CPU reaches
+# 0.30 of it, tests/test_torch_flash_attention.py).
 GRAD_TOLERANCE = [("float32", 1e-4), ("bfloat16", 2e-2)]
 
 
@@ -509,25 +511,40 @@ def test_flash_attention_backward_masks(cuda_device, causal, window, dtype,
 
 
 @pytest.mark.cuda
-def test_flash_attention_backward_llama_gqa(cuda_device):
+@pytest.mark.parametrize("b", [1, 2])
+def test_flash_attention_backward_llama_gqa(cuda_device, b):
     """llama3.2-3b's 24 q-heads over 8 kv heads at its training length:
-    dk and dv sum three query heads over 2048 rows."""
-    _flash_backward_case(cuda_device, 1, 24, 8, 2048, 128, True, None,
+    dk and dv sum three query heads over 2048 rows, on the tensor-core
+    kernels."""
+    before = fa_kernel.backward_variant_launches()
+    _flash_backward_case(cuda_device, b, 24, 8, 2048, 128, True, None,
                          "bfloat16", 2e-2, seed=7)
+    after = fa_kernel.backward_variant_launches()
+    assert after["tensor_cores"] == before["tensor_cores"] + 1
+    assert after["cuda_cores"] == before["cuda_cores"]
 
 
 @pytest.mark.cuda
-def test_flash_attention_backward_is_deterministic(cuda_device):
+@pytest.mark.parametrize("b,hq,hkv,s,d,window", [
+    (2, 4, 2, 300, 64, None), (2, 6, 2, 333, 16, 100),
+    (2, 6, 2, 333, 32, None), (2, 6, 2, 333, 128, 100)])
+def test_flash_attention_backward_is_deterministic(cuda_device, b, hq, hkv,
+                                                   s, d, window):
+    """Two bf16 backward calls on the same inputs give the same dq, dk
+    and dv, bit for bit: no atomics, the GQA sum in a fixed order."""
     rng = np.random.default_rng(9)
-    q = _normal(rng, (2, 4, 300, 64), cuda_device, "bfloat16")
-    k, v = (_normal(rng, (2, 2, 300, 64), cuda_device, "bfloat16")
+    q = _normal(rng, (b, hq, s, d), cuda_device, "bfloat16")
+    k, v = (_normal(rng, (b, hkv, s, d), cuda_device, "bfloat16")
             for _ in range(2))
-    o = fa_kernel.flash_attention(q, k, v)
+    o, lse = fa_kernel.flash_attention(q, k, v, window=window,
+                                       return_lse=True)
     dout = _normal(rng, q.shape, cuda_device, "bfloat16")
-    first = fa_kernel.flash_attention_backward(q, k, v, o, dout)
-    second = fa_kernel.flash_attention_backward(q, k, v, o, dout)
-    for a, b in zip(first, second):
-        assert torch.equal(a, b)
+    first = fa_kernel.flash_attention_backward(q, k, v, o, lse, dout,
+                                               window=window)
+    second = fa_kernel.flash_attention_backward(q, k, v, o, lse, dout,
+                                                window=window)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
@@ -535,13 +552,96 @@ def test_flash_attention_backward_rejects_what_it_does_not_take(
         cuda_device):
     q = torch.zeros((1, 4, 64, 64), device=cuda_device)
     k = torch.zeros((1, 2, 64, 64), device=cuda_device)
+    lse = torch.zeros((1, 4, 64), device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
-        fa_kernel.flash_attention_backward(q, k, k, q, q.transpose(2, 3))
+        fa_kernel.flash_attention_backward(q, k, k, q, lse,
+                                           q.transpose(2, 3))
     with pytest.raises(ValueError):
-        fa_kernel.flash_attention_backward(q, k, k, q[:, :2], q)
+        fa_kernel.flash_attention_backward(q, k, k, q[:, :2], lse, q)
     with pytest.raises(TypeError):
         fa_kernel.flash_attention_backward(*(t.double()
-                                             for t in (q, k, k, q, q)))
+                                             for t in (q, k, k, q)), lse,
+                                           q.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,variant", [("bfloat16", "tensor_cores"),
+                                           ("float32", "cuda_cores")])
+def test_flash_attention_backward_variant(cuda_device, dtype, variant):
+    """bf16 runs on the tensor-core kernels, f32 on the CUDA cores, as the
+    backward's C entry point counts them."""
+    rng = np.random.default_rng(10)
+    q = _normal(rng, (1, 4, 200, 64), cuda_device, dtype)
+    k, v = (_normal(rng, (1, 2, 200, 64), cuda_device, dtype)
+            for _ in range(2))
+    o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True)
+    dout = _normal(rng, q.shape, cuda_device, dtype)
+    before = fa_kernel.backward_variant_launches()
+    fa_kernel.flash_attention_backward(q, k, v, o, lse, dout)
+    torch.cuda.synchronize()
+    after = fa_kernel.backward_variant_launches()
+    other = "cuda_cores" if variant == "tensor_cores" else "tensor_cores"
+    assert after[variant] == before[variant] + 1
+    assert after[other] == before[other]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (1, 4, 2, 200, 64, True, None), (2, 4, 4, 65, 16, True, 64),
+    (1, 6, 2, 129, 32, False, None), (1, 24, 8, 2048, 128, True, None)])
+def test_flash_attention_forward_lse(cuda_device, dtype, b, hq, hkv, s, d,
+                                     causal, window):
+    """The forward with the log-sum-exp buffer gives the same output, bit
+    for bit, as without it; its log-sum-exp is within 1e-5 of
+    ``ref.row_lse`` (the same f32 sums of the same bf16 or f32 inputs,
+    in other orders)."""
+    rng = np.random.default_rng(s)
+    q = _normal(rng, (b, hq, s, d), cuda_device, dtype)
+    k, v = (_normal(rng, (b, hkv, s, d), cuda_device, dtype)
+            for _ in range(2))
+    plain = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
+    out, lse = fa_kernel.flash_attention(q, k, v, causal=causal,
+                                         window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq, s)
+    want = fa_ref.row_lse(q, k, causal=causal, window=window)
+    assert float((lse - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_bf16_refusal_raises(cuda_device):
+    """A bf16 call the kernels cannot take raises before launching
+    anything and never falls back to another design."""
+    rng = np.random.default_rng(12)
+    q = _normal(rng, (1, 4, 64, 64), cuda_device, "bfloat16")
+    k = _normal(rng, (1, 2, 64, 64), cuda_device, "bfloat16")
+    o, lse = fa_kernel.flash_attention(q, k, k, return_lse=True)
+    torch.cuda.synchronize()
+    before = (fa_kernel.backward_variant_launches(),
+              fa_kernel.flash_attention_backward.launches)
+    odd = _normal(rng, (1, 4, 64, 48), cuda_device, "bfloat16")
+    odd_kv = _normal(rng, (1, 2, 64, 48), cuda_device, "bfloat16")
+    with pytest.raises(ValueError, match="head dims"):
+        fa_kernel.flash_attention_backward(odd, odd_kv, odd_kv, odd, lse,
+                                           odd)
+    with pytest.raises(ValueError, match="lse"):
+        fa_kernel.flash_attention_backward(q, k, k, o, lse.bfloat16(), o)
+    with pytest.raises(ValueError, match="lse"):
+        fa_kernel.flash_attention_backward(q, k, k, o, lse[:, :2], o)
+    with pytest.raises(ValueError, match="lse"):
+        fa_kernel.flash_attention_backward(q, k, k, o, lse.cpu(), o)
+    # a shape the C entry point refuses: the wrapper raises on its code
+    launch = fa_kernel.build_backward()
+    rc = launch(q.data_ptr(), k.data_ptr(), k.data_ptr(), o.data_ptr(),
+                o.data_ptr(), q.data_ptr(), k.data_ptr(), k.data_ptr(),
+                lse.data_ptr(), lse.data_ptr(), 1, 4, 2, 64, 48, 1, -1, 1,
+                torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+    torch.cuda.synchronize()
+    assert (fa_kernel.backward_variant_launches(),
+            fa_kernel.flash_attention_backward.launches) == before
 
 
 def _wkv_backward_case(device, shape, dtype, tol, seed=0, w_lo=0.7):
