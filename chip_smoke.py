@@ -124,7 +124,12 @@ Phases, each printed as one JSON object on its own line:
     without it, the design each call ran on (bf16 the tensor cores, f32
     the CUDA cores), two calls bit-identical, the achieved TFLOP/s, the
     share of the bound (the function's five products) and of the
-    design's own floor (seven products: S and dP in both kernels).
+    design's own floor (seven products: S and dP in both kernels).  For
+    wkv also: the design each call ran on (bf16 at D >= 16 the chunked
+    form on the tensor cores, else the scan on the CUDA cores), two calls
+    bit-identical, the share of the design's floor (chunked: the bound's
+    bytes plus its two boundary buffers; scan: its f32 FLOPs), and bf16
+    cases at T = 1, T = 63 and D = 16, 32.
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after; ``fedavg_agg``'s count in the kernel
@@ -1622,6 +1627,13 @@ FLASH_BACKWARD_VARIANT = {"bfloat16": "tensor_cores",
 # decays down to 0 on an NVIDIA H100).  2e-3 holds that and fails a
 # wrong kernel, whose errors are of the gradients' own size
 WKV_GRAD_TOLERANCE = {"float32": 2e-3, "bfloat16": 2e-2}
+# The design each wkv backward call runs on: the chunked form on the
+# tensor cores for bf16 at D >= 16, the scan on the CUDA cores otherwise
+def _wkv_backward_variant(dtype_name, d):
+    return ("tensor_cores" if dtype_name == "bfloat16" and d >= 16
+            else "cuda_cores")
+
+
 # SGD step of the train phases, by config: with random bf16 weights and
 # random labels an update has to clear bf16's resolution of the weights
 # (2**-8 of them) to move the loss, and not overshoot.  llama3.2-3b falls
@@ -1679,11 +1691,18 @@ def _backward_times(kernel_fn, plain_fn, library_fn, big):
 
 def _kept_grad(fn, inputs, dout):
     """A callable that runs the backward of ``fn(*inputs)`` again on each
-    call (the forward's graph is kept)."""
+    call (the forward's graph is kept); at T = 1 wkv's decay never reaches
+    the output, and its gradient is 0."""
     import torch
     leaves = [x.detach().requires_grad_() for x in inputs]
     out = fn(*leaves)
-    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+    def grads():  # zeros for an input that does not reach the output
+        got = torch.autograd.grad(out, leaves, dout, retain_graph=True,
+                                  allow_unused=True)
+        return [torch.zeros_like(x) if g is None else g
+                for g, x in zip(got, leaves)]
+    return grads
 
 
 def _flash_backward_case(fa_kernel, fa_ref, q_shape, hkv, window,
@@ -1808,7 +1827,8 @@ def phase_flash_backward_kernel(fa_kernel, fa_ref, train_shapes):
 
 def _wkv_backward_case(wkv_kernel, wkv_ref, shape, dtype_name, seed, w_lo):
     """The backward kernel against autograd through ``ref.wkv_chunked``
-    (``ref.wkv`` where T is no multiple of 64), with times.  ``w_lo`` = 0:
+    (``ref.wkv`` where T is no multiple of 64), with times, the design the
+    call ran on and whether two calls agree bit for bit.  ``w_lo`` = 0:
     decays from [0, 0.999] with exact zeros, as ``_wkv_case``."""
     import torch
     dtype = getattr(torch, dtype_name)
@@ -1828,7 +1848,14 @@ def _wkv_backward_case(wkv_kernel, wkv_ref, shape, dtype_name, seed, w_lo):
     u = normal((h, d), 0.1)
     dout = normal(shape)
     inputs = (r, k, v, w, u)
+    before = wkv_kernel.backward_variant_launches()
     got = wkv_kernel.wkv_backward(*inputs, dout)
+    torch.cuda.synchronize()
+    after = wkv_kernel.backward_variant_launches()
+    variants = {name: after[name] - before[name] for name in after}
+    again = wkv_kernel.wkv_backward(*inputs, dout)
+    bit_identical = all(torch.equal(x, y) for x, y in zip(got, again))
+    del again
     if t % 64 == 0:
         def plain(*x):
             return wkv_ref.wkv_chunked(*x, chunk=64)
@@ -1850,18 +1877,39 @@ def _wkv_backward_case(wkv_kernel, wkv_ref, shape, dtype_name, seed, w_lo):
         lambda: wkv_kernel.wkv_backward(*inputs, dout),
         _kept_grad(plain, inputs, dout), None, nbytes > 50e6)
     bound = _bound(nbytes, ops, dtype_name)
+    # the design's own floor.  Chunked: the bound's bytes plus its two
+    # (B, H, n, D, D) f32 boundary buffers written and read once, against
+    # its tensor-core products (per chunk 1792 D^2 + 6144 D FLOP, the
+    # hi/lo splits included).  Scan: its 22 D^2 f32 FLOP a step
+    want_variant = _wkv_backward_variant(dtype_name, d)
+    n = -(-t // 64)
+    if want_variant == "tensor_cores":
+        floor_ms = 1e3 * max(
+            (nbytes + 4 * b * h * n * d * d * 4) / HBM_BYTES_PER_S,
+            (1792 * d * d + 6144 * d) * b * h * n
+            / PEAK_OPS_PER_S["bfloat16"])
+    else:
+        floor_ms = 1e3 * 22 * d * d * t * b * h / PEAK_OPS_PER_S["float32"]
+    right_variant = variants == {
+        name: int(name == want_variant) for name in variants}
     rec = {"shape": list(shape), "dtype": dtype_name, "w_lo": w_lo,
            "max_abs_err": err, "max_abs_grad": scale, "tolerance": tol,
-           "ok": ok, "plain_form": "wkv_chunked" if t % 64 == 0 else "wkv",
+           "design": want_variant, "variant_launches": variants,
+           "bit_identical": bit_identical,
+           "ok": ok and right_variant and bit_identical,
+           "plain_form": "wkv_chunked" if t % 64 == 0 else "wkv",
            **times, **bound,
-           "bound_share": bound["bound_ms"] / times["kernel_ms"]}
+           "bound_share": bound["bound_ms"] / times["kernel_ms"],
+           "design_floor_ms": floor_ms,
+           "design_floor_share": floor_ms / times["kernel_ms"]}
     _free()
     return rec
 
 
 def phase_wkv_backward_kernel(wkv_kernel, wkv_ref, main_shape):
     """rwkv6-1.6b's training shape in bf16, with mild decays and with
-    decays down to 0, and in f32 down to 0; a ragged case."""
+    decays down to 0, and in f32 down to 0; ragged lengths (T = 200, 63
+    and 1) and the smaller head dims of the chunked form."""
     cases = {
         "main": _wkv_backward_case(wkv_kernel, wkv_ref, main_shape,
                                    "bfloat16", 0, 0.7),
@@ -1872,12 +1920,19 @@ def phase_wkv_backward_kernel(wkv_kernel, wkv_ref, main_shape):
     for dtype_name in ("float32", "bfloat16"):
         cases[f"ragged-strong-{dtype_name}"] = _wkv_backward_case(
             wkv_kernel, wkv_ref, (2, 4, 200, 64), dtype_name, 1, 0.0)
+    for name, shape, seed in (("t1", (2, 4, 1, 64), 2),
+                              ("t63", (2, 4, 63, 64), 3),
+                              ("d16", (2, 4, 200, 16), 4),
+                              ("d32", (2, 4, 200, 32), 5)):
+        cases[f"{name}-strong-bfloat16"] = _wkv_backward_case(
+            wkv_kernel, wkv_ref, shape, "bfloat16", seed, 0.0)
     for name, case in cases.items():
         emit({"phase": "wkv_backward_kernel", "case": name, **case})
     bad = [k for k, v in cases.items() if not v["ok"]]
     if bad:
         raise RuntimeError(f"wkv6 backward disagrees with autograd through "
-                           f"its plain version: {bad}")
+                           f"its plain version, ran on another design or "
+                           f"differs between two calls: {bad}")
     return cases["main"]
 
 

@@ -13,7 +13,10 @@ synchronizes.  ``wkv.launches`` counts launches.
 :func:`wkv_backward` wraps the gradient kernels (``csrc/wkv6_bwd.cu``, a
 library of its own): dr, dk, dv, dw and du from the forward's inputs and
 the output's gradient, in three launches counted once in
-``wkv_backward.launches``.
+``wkv_backward.launches``.  Its C entry point picks the design by type as
+the forward's does: bfloat16 at head dims of 16 and up takes the chunked
+form on the tensor cores, float32 (and bfloat16 at D = 8) the scan on
+the CUDA cores; :func:`backward_variant_launches` counts each.
 """
 from __future__ import annotations
 
@@ -27,11 +30,13 @@ from ..build import load_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
 SOURCE_BWD = SOURCE.with_name("wkv6_bwd.cu")
-# the backward's state checkpoints: every CKPT_STEPS steps over T, and
-# every CKPT_SUB_STEPS steps within one such chunk (csrc/wkv6_bwd.cu)
-CKPT_STEPS, CKPT_SUB_STEPS = 64, 8
+# the backward's states are kept every CHUNK steps over T; the scan design
+# also every CKPT_SUB_STEPS steps within one such chunk (csrc/wkv6_bwd.cu)
+CHUNK, CKPT_SUB_STEPS = 64, 8
 HEAD_DIMS = (8, 16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward's designs, as its C entry point numbers them
+BACKWARD_VARIANTS = ("cuda_cores", "tensor_cores")
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,6 +57,23 @@ def build_backward():
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_variant_counter():
+    fn = load_library(SOURCE_BWD).wkv6_backward_variant_launches
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_ulonglong
+    return fn
+
+
+def backward_variant_launches() -> dict:
+    """Backward calls that succeeded in this process, by design, as its C
+    entry point counts them: ``cuda_cores`` (the scan: float32, and
+    bfloat16 at D = 8) and ``tensor_cores`` (the chunked form: bfloat16
+    at D >= 16).  Builds the library at first use."""
+    fn = _backward_variant_counter()
+    return {name: int(fn(i)) for i, name in enumerate(BACKWARD_VARIANTS)}
 
 
 def _check(r, k, v, w, u) -> None:
@@ -125,14 +147,19 @@ def wkv_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, t, d = r.shape
     grads = [torch.empty_like(x) for x in (r, k, v, w, u)]
     f32 = dict(dtype=torch.float32, device=r.device)
-    du_part = torch.empty((b, h, d), **f32)
-    ckpt = torch.empty((b, h, -(-t // CKPT_STEPS), d, d), **f32)
-    ckpt_sub = torch.empty((b, h, CKPT_STEPS // CKPT_SUB_STEPS, d, d), **f32)
+    # scratch that either design fits in: the chunked form keeps a du
+    # partial per chunk, the states at every chunk's start and their
+    # gradients at every chunk's end; the scan a du partial per (b, h), the
+    # states at every chunk's start and within one chunk
+    n = -(-t // CHUNK)
+    scratch = [torch.empty(shape, **f32) for shape in (
+        (b, h, n, d), (b, h, n, d, d),
+        (b, h, max(n, CHUNK // CKPT_SUB_STEPS), d, d))]
     launch = build_backward()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(*(x.data_ptr() for x in (r, k, v, w, u, do, *grads,
-                                             du_part, ckpt, ckpt_sub)),
+                                             *scratch)),
                     b, h, t, d, _DTYPES[r.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"wkv6 backward launch failed: CUDA error {rc} "

@@ -695,3 +695,61 @@ def test_wkv6_backward_rejects_what_it_does_not_take(cuda_device):
         wkv_kernel.wkv_backward(r, k, v, w, u, r.transpose(2, 3))
     with pytest.raises(ValueError):
         wkv_kernel.wkv_backward(r, k, v, w, u, r[:, :1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,variant", [
+    ("bfloat16", 64, "tensor_cores"), ("bfloat16", 32, "tensor_cores"),
+    ("bfloat16", 16, "tensor_cores"), ("bfloat16", 8, "cuda_cores"),
+    ("float32", 64, "cuda_cores")])
+@pytest.mark.parametrize("t", [1, 63, 130])
+def test_wkv6_backward_design_and_determinism(cuda_device, dtype, d,
+                                              variant, t):
+    """bf16 at D >= 16 runs the chunked form on the tensor cores, f32 and
+    bf16 at D = 8 the scan, as the backward's C entry point counts them;
+    two calls on the same inputs give the same gradients, bit for bit
+    (no float atomics), also at lengths no chunk divides."""
+    shape = (2, 3, t, d)
+    r, k, v, w, u = _wkv_inputs(shape, cuda_device, dtype, seed=t + d,
+                                w_lo=0.0)
+    dout = _normal(np.random.default_rng(t), shape, cuda_device, dtype)
+    before = wkv_kernel.backward_variant_launches()
+    got = wkv_kernel.wkv_backward(r, k, v, w, u, dout)
+    torch.cuda.synchronize()
+    after = wkv_kernel.backward_variant_launches()
+    assert {name: after[name] - before[name] for name in after} == {
+        name: int(name == variant) for name in after}
+    again = wkv_kernel.wkv_backward(r, k, v, w, u, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain = wkv_ref.wkv_chunked_backward(*(x.float() for x in (
+        r, k, v, w, u, dout)))
+    tol = dict(GRAD_TOLERANCE)[dtype]
+    _assert_grads_close(got, plain, tol, ("dr", "dk", "dv", "dw", "du"))
+
+
+@pytest.mark.cuda
+def test_wkv6_backward_refusal_raises(cuda_device):
+    """A call the kernels cannot take raises before launching anything,
+    counts no launch and no design, and never falls back to another
+    design."""
+    r, k, v, w, u = _wkv_inputs((1, 2, 64, 64), cuda_device, "bfloat16")
+    kernel_ok = wkv_kernel.wkv_backward(r, k, v, w, u, r)
+    torch.cuda.synchronize()
+    before = (wkv_kernel.backward_variant_launches(),
+              wkv_kernel.wkv_backward.launches)
+    odd = _wkv_inputs((1, 2, 64, 48), cuda_device, "bfloat16")
+    with pytest.raises(ValueError, match="head dims"):
+        wkv_kernel.wkv_backward(*odd, odd[0])
+    with pytest.raises(ValueError):
+        wkv_kernel.wkv_backward(r, k, v, w, u, r.float())
+    # shapes the C entry point refuses: it returns an error code, which
+    # the wrapper raises on, and launches nothing
+    launch = wkv_kernel.build_backward()
+    ptrs = [x.data_ptr() for x in (r, k, v, w, u, r, *kernel_ok, r, r, r)]
+    stream = torch.cuda.current_stream().cuda_stream
+    for b, h, t, d, dtype in ((1, 2, 64, 48, 1), (0, 2, 64, 64, 1),
+                              (1, 2, 0, 64, 1), (1, 2, 64, 64, 2)):
+        assert launch(*ptrs, b, h, t, d, dtype, stream) != 0
+    torch.cuda.synchronize()
+    assert (wkv_kernel.backward_variant_launches(),
+            wkv_kernel.wkv_backward.launches) == before
