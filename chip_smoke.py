@@ -87,9 +87,24 @@ Phases, each printed as one JSON object on its own line:
     tokens (one ``wkv6`` launch per layer, 24) and decode steps; the
     smallest decay ``w`` the prefill feeds the kernel, and each layer's
     0.1 % quantile of it.
+16a. ``moe_prefill``: ``make_prefill_step`` on full-width
+    ``deepseek-v2-lite-16b`` (MLA + MoE, full depth) and
+    ``qwen3-moe-235b-a22b`` (GQA + MoE, 4 of 94 layers), B = 4 x 2048,
+    random bf16 weights from seed 0: finite logits, ``flash_attention``
+    launches 0 (MLA is plain torch) and 4; wall, tokens/s, peak memory,
+    the busy share and the profile's groups (GEMMs, gather/scatter,
+    sort/top-k, softmax, elementwise).
+16b. ``moe_decode``: deepseek-v2-lite-16b behind ``TransformerBackend``
+    (8 requests a step over a 2048 cache, MLA's latent cache, the flat
+    MoE dispatch): per-token latency and the busy share.
+16c. ``moe_decode_vs_prefill``: both MoE configs in float32 at 2 layers,
+    B = 1, 64 positions, at the capacity factor n_experts /
+    n_experts_active rounded up (11 and 16), where no token drops:
+    decode within 1e-3 of prefill.
 17. ``flash_kernel`` / ``wkv_kernel``: each kernel against its plain
     version on the card at the shapes the main paths gave it (in their
-    bf16 and in f32) and over the reference's sweep, f32 and bf16, with
+    bf16 and in f32; for attention also qwen3-moe's q 4 x 64 x 2048 x
+    128 over 4 KV heads) and over the reference's sweep, f32 and bf16, with
     decays from [0.7, 0.999] and (wkv) also from [0, 0.999] with exact
     zeros, timed as in phase 4 beside the library call
     (``scaled_dot_product_attention``; none for wkv) and ``bound_ms``;
@@ -98,25 +113,35 @@ Phases, each printed as one JSON object on its own line:
 18. ``transformer_train``: full-width ``llama3.2-3b`` (random bf16
     weights from seed 0), 3 ``make_sharded_train_step`` steps (SGD,
     ``TRAIN_LR``, remat) on one fixed batch of 4 x 2048 tokens: losses
-    finite and falling; per step 2 ``flash_attention`` launches a layer
-    (forward and remat recompute) and 1 ``flash_attention_backward``;
+    finite, the last below the first; per step 2 ``flash_attention``
+    launches a layer (forward and remat recompute) and 1
+    ``flash_attention_backward``;
     step wall, tokens/s, peak memory, and one more step under the
     profiler (busy share, GEMMs, elementwise, attention forward and
     backward, the backward by kernel: delta, dK/dV, dQ); then at 2
     layers of full width one step's gradients through the kernels
     against the same step through the plain versions, in float32 (each leaf within ``TRAIN_GRAD_TOL`` of its
     norm) and in bf16 (no more than twice the plain bf16 step's own
-    distance from the float32 one, plus 1e-2).
+    distance from the float32 one, plus 1e-2), and the float32 loss after
+    one SGD step through each (within ``STEP_LOSS_TOL``).
 19. ``rwkv6_train``: the same for full-width ``rwkv6-1.6b`` (24 layers,
     ``wkv6`` forward, remat and ``wkv6_backward``).
+19a. ``moe_train``: the same for deepseek-v2-lite-16b (20 of 27 layers;
+    no kernel on its path, every count 0, the aux loss finite) and
+    qwen3-moe-235b-a22b at 4 layers (``flash_attention`` and its
+    backward at a GQA group of 16).
 20. ``fl_train_step``: ``make_fl_train_step`` on full-width llama3.2-3b,
     2 replicas, ``h_local`` = 2, 2 x 2048 tokens a replica, 2 rounds:
     one ``fedavg_agg`` launch a round, the aggregate against
     ``ref.weighted_aggregate`` of the stacked replicas, every replica
     slot equal to the aggregate, the round wall.
+20a. ``moe_fl_train_step``: the same on deepseek-v2-lite-16b at full
+    width cut to 2 layers (its expert leaves are 3-D stacks): one
+    ``fedavg_agg`` launch a round, no attention launch.
 21. ``flash_backward_kernel`` / ``wkv_backward_kernel``: each backward
     kernel against autograd through its plain version (f32, on the same
-    input values) at the training shapes, bf16 and f32 (wkv with decays
+    input values) at the training shapes (attention also at qwen3-moe's
+    in bf16), bf16 and f32 (wkv with decays
     down to 0), with times beside the plain version's backward and, for
     attention, ``scaled_dot_product_attention``'s backward, and
     ``bound_ms``.  For attention also: the forward's log-sum-exp against
@@ -124,7 +149,8 @@ Phases, each printed as one JSON object on its own line:
     without it, the design each call ran on (bf16 the tensor cores, f32
     the CUDA cores), two calls bit-identical, the achieved TFLOP/s, the
     share of the bound (the function's five products) and of the
-    design's own floor (seven products: S and dP in both kernels).  For
+    design's own floor (nine products: S and dP in both kernels, dV's and
+    dK's over bf16 high and low parts).  For
     wkv also: the design each call ran on (bf16 at D >= 16 the chunked
     form on the tensor cores, else the scan on the CUDA cores), two calls
     bit-identical, the share of the design's floor (chunked: the bound's
@@ -133,8 +159,8 @@ Phases, each printed as one JSON object on its own line:
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after; ``fedavg_agg``'s count in the kernel
-line sums its paths (phases 2, 8, 9, 11, 12 and 20), the attention and
-wkv counts theirs (prefill, training, the FL step).  Then a
+line sums its paths (phases 2, 8, 9, 11, 12, 20 and 20a), the attention
+and wkv counts theirs (prefill, training, the FL steps).  Then a
 ``{"kernels": [...]}`` line and, last, the device line.  Any failed phase, a missing CUDA
 device, or a directory without the rest of the repository gives a
 non-zero exit and no result line.
@@ -1180,6 +1206,38 @@ def _share(by_name, wall_ms, *needles):
     return out
 
 
+# The profile's groups: a kernel counts in the first group one of whose
+# needles its name holds (lower case); the top-k kernels' names hold
+# "gather", so sort/top-k comes before gather/scatter, and the indexing
+# kernels' names hold "elementwise", so gather/scatter comes before it
+PROFILE_GROUPS = (
+    ("attention_kernels", ("flash_attention", "fa_bwd", "dkdv_wgmma",
+                           "dq_wgmma", "wkv6")),
+    ("sort_topk", ("sort", "topk")),
+    ("gather_scatter", ("index", "gather", "scatter")),
+    ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("softmax", ("softmax",)),
+    ("elementwise_reduce", ("elementwise", "reduce")),
+)
+
+
+def _groups(by_name):
+    """Device ms of each ``PROFILE_GROUPS`` group (and of the kernels in
+    none, ``other``) and its share of the busy time."""
+    if not by_name:
+        return {"profile_groups": "not measured"}
+    ms = {name: 0.0 for name, _ in PROFILE_GROUPS}
+    ms["other"] = 0.0
+    for kernel, (t, _) in by_name.items():
+        low = kernel.lower()
+        group = next((name for name, needles in PROFILE_GROUPS
+                      if any(n in low for n in needles)), "other")
+        ms[group] += t
+    busy = sum(ms.values())
+    return {"profile_groups": {name: {"ms": t, "share_of_busy": t / busy}
+                               for name, t in ms.items()}}
+
+
 def _prefill_run(launchers, cfg, batch, seq, needle):
     """Full-width prefill of ``cfg`` (random weights from seed 0) through
     ``make_prefill_step``: one warm-up call, then the counted call and a
@@ -1215,7 +1273,8 @@ def _prefill_run(launchers, cfg, batch, seq, needle):
            "init_s": init_s, "wall_s": wall_s,
            "tokens_per_s": batch * seq / wall_s, "peak_memory_gib": peak,
            "logits_shape": list(logits.shape), "logits_finite": finite,
-           "launches": counts, **_share(by_name, prof_wall, needle)}
+           "launches": counts, **_share(by_name, prof_wall, needle),
+           **_groups(by_name)}
     del params, logits
     _free()
     return rec, counts, finite and shape_ok
@@ -1236,17 +1295,75 @@ def phase_transformer_prefill(launchers, batch=4, seq=2048):
         "kv_heads": cfg.n_kv_heads, "window": cfg.sliding_window}
 
 
-def phase_transformer_decode(launchers, batch=8, steps=32):
-    """``TransformerBackend`` at full width answering ``steps`` batches of
-    ``batch`` requests, after 3 that warm it up (the first allocates the
-    cache).  ``predict`` ends in a synchronize, so the host clock around
-    it is the request's latency."""
+# The MoE configs at full width, and the depth their prefill runs at
+# (None: their own).  deepseek-v2-lite-16b (MLA + MoE, 16.2 B params,
+# 32 GB in bf16) fits one card at full depth; qwen3-moe-235b-a22b (~2.5 B
+# params a layer) runs 4 of its 94 layers (22 GB)
+MOE_LAYERS = {"deepseek-v2-lite-16b": None, "qwen3-moe-235b-a22b": 4}
+# Training adds the gradients (as many bytes again) and one block's
+# recompute.  deepseek-v2-lite-16b at full depth peaks at 64.8 GiB
+# allocated, but the allocator's cached blocks fill the card's 79.2 GiB
+# (NVIDIA H100 80GB HBM3) and a step can run out of memory; 20 of its 27
+# layers leave ~14 GiB of room
+MOE_TRAIN_LAYERS = {"deepseek-v2-lite-16b": 20, "qwen3-moe-235b-a22b": 4}
+
+
+def _config(name, n_layers=None, **changes):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if n_layers is not None:
+        changes["n_layers"] = n_layers
+    return dataclasses.replace(cfg, **changes)
+
+
+def _attention_layers(cfg):
+    """The layers whose attention goes through ``flash_attention``: GQA
+    ones (MLA is plain torch, as in the reference)."""
+    return cfg.n_layers if cfg.attention == "gqa" else 0
+
+
+def phase_moe_prefill(launchers, batch=4, seq=2048):
+    """``make_prefill_step`` on each MoE config of ``MOE_LAYERS`` at full
+    width, B = 4 x 2048 tokens: finite logits, one ``flash_attention``
+    launch a GQA layer (qwen3-moe) and none for MLA (deepseek), wall,
+    tokens/s, peak memory, the busy share and the profile's groups.
+    Returns the attention launches and qwen3-moe's attention shape."""
+    launches, shape = 0, None
+    for name, n_layers in MOE_LAYERS.items():
+        cfg = _config(name, n_layers)
+        rec, counts, ok = _prefill_run(launchers, cfg, batch, seq,
+                                       "flash_attention")
+        want = _attention_layers(cfg)
+        ok = ok and counts["flash_attention"] == want and all(
+            n == 0 for k, n in counts.items() if k != "flash_attention")
+        emit({"phase": "moe_prefill", "ok": ok, "n_layers": cfg.n_layers,
+              "full_depth": n_layers is None, **rec})
+        if not ok:
+            raise RuntimeError(f"{name} prefill: non-finite logits, or "
+                               f"flash_attention launches != {want}")
+        launches += counts["flash_attention"]
+        if want:
+            shape = {"q": (batch, cfg.n_heads, seq, cfg.head_dim),
+                     "kv_heads": cfg.n_kv_heads,
+                     "window": cfg.sliding_window}
+    return launches, shape
+
+
+def phase_transformer_decode(launchers, name="llama3.2-3b",
+                             phase="transformer_decode", batch=8,
+                             steps=32):
+    """``TransformerBackend`` on full-width ``name`` answering ``steps``
+    batches of ``batch`` requests over a 2048-position cache, after 3
+    that warm it up (the first allocates the cache).  ``predict`` ends in
+    a synchronize, so the host clock around it is the request's
+    latency."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.serve import TransformerBackend
     from repro_torch.tree import tree_leaves
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config(name)
     be = TransformerBackend(model_cfg=cfg, seq_len=2048)
     rng = np.random.default_rng(0)
     for _ in range(3):
@@ -1266,7 +1383,7 @@ def phase_transformer_decode(launchers, batch=8, steps=32):
     samples = rng.integers(0, 1 << 20, size=batch)
     wall_ms, by_name = _profile(lambda: be.predict(0, None, samples))
     ok = finite and be._pos[batch] == steps + 4
-    emit({"phase": "transformer_decode", "ok": ok, "config": cfg.name,
+    emit({"phase": phase, "ok": ok, "config": cfg.name,
           "batch": batch, "seq_len": be.seq_len, "steps": steps,
           "per_token_ms_median": statistics.median(lat) * 1e3,
           "per_token_ms_mean": statistics.mean(lat) * 1e3,
@@ -1278,7 +1395,7 @@ def phase_transformer_decode(launchers, batch=8, steps=32):
     del be
     _free()
     if not ok:
-        raise RuntimeError("llama3.2-3b decode: non-finite logits")
+        raise RuntimeError(f"{name} decode: non-finite logits")
 
 
 # float32 with TF32 off: prefill and decode take every product through
@@ -1290,19 +1407,24 @@ def phase_transformer_decode(launchers, batch=8, steps=32):
 DECODE_VS_PREFILL_TOL = 1e-3
 
 
-def _decode_vs_prefill(launchers, name, kernel, seq, n_layers=None):
+def _decode_vs_prefill(launchers, name, kernel, seq, n_layers=None,
+                       phase="decode_vs_prefill"):
     """Full-width ``name`` in float32, B = 1, at its own depth or cut to
     ``n_layers``: the prefill's logits at all ``seq`` positions (through
-    ``kernel``, one launch a layer) against ``seq`` plain
-    ``serve_step``s.  Returns the config."""
-    import dataclasses
+    ``kernel``, one launch a layer; ``None``: no kernel on the path)
+    against ``seq`` plain ``serve_step``s.  An MoE config runs at the
+    capacity factor n_experts / n_experts_active rounded up to an
+    integer, where no token drops (``cap`` = S at prefill, = B = 1 at a
+    decode step); at its shipping 1.25, decode's global capacity drops
+    tokens by design and differs from prefill.  Returns the config."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_serve_step
     from repro_torch.models import transformer as T
-    cfg = dataclasses.replace(get_config(name), param_dtype="float32")
-    if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg = _config(name, n_layers, param_dtype="float32")
+    if cfg.n_experts:
+        cfg = _config(name, n_layers, param_dtype="float32",
+                      capacity_factor=float(-(-cfg.n_experts
+                                              // cfg.n_experts_active)))
     backends = torch.backends
     saved = (backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32)
     backends.cuda.matmul.allow_tf32 = False
@@ -1330,10 +1452,12 @@ def _decode_vs_prefill(launchers, name, kernel, seq, n_layers=None):
         scale = float(full.abs().max())
     finally:
         backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32 = saved
-    ok = (counts[kernel] == cfg.n_layers
+    launched = counts[kernel] if kernel else sum(counts.values())
+    ok = (launched == (cfg.n_layers if kernel else 0)
           and math.isfinite(err) and err <= DECODE_VS_PREFILL_TOL)
-    emit({"phase": "decode_vs_prefill", "ok": ok, "config": cfg.name,
+    emit({"phase": phase, "ok": ok, "config": cfg.name,
           "n_layers": cfg.n_layers, "dtype": "float32", "tf32": False,
+          "capacity_factor": cfg.capacity_factor if cfg.n_experts else None,
           "seq_len": seq,
           "max_abs_err": err, "tolerance": DECODE_VS_PREFILL_TOL,
           "max_abs_logit": scale, "decode_s": decode_s,
@@ -1341,9 +1465,19 @@ def _decode_vs_prefill(launchers, name, kernel, seq, n_layers=None):
     del params, full, cache
     _free()
     if not ok:
-        raise RuntimeError(f"{name}: decode and prefill logits disagree "
-                           f"or {kernel} launches != n_layers")
+        raise RuntimeError(f"{name}: decode and prefill logits disagree, "
+                           f"or launches other than one {kernel} a layer")
     return cfg
+
+
+def phase_moe_decode_vs_prefill(launchers):
+    """deepseek-v2-lite-16b (MLA: no kernel) and qwen3-moe-235b-a22b
+    (flash_attention) at full width, cut to 2 layers, over 64
+    positions."""
+    _decode_vs_prefill(launchers, "deepseek-v2-lite-16b", None, 64,
+                       n_layers=2, phase="moe_decode_vs_prefill")
+    _decode_vs_prefill(launchers, "qwen3-moe-235b-a22b", "flash_attention",
+                       64, n_layers=2, phase="moe_decode_vs_prefill")
 
 
 def phase_decode_vs_prefill(launchers):
@@ -1487,11 +1621,13 @@ FLASH_SWEEP = [((1, 2, 128, 32), 2), ((2, 4, 256, 64), 2),
                ((2, 4, 200, 64), 2)]
 
 
-def phase_flash_kernel(fa_kernel, fa_ref, prefill_shapes, f32_shapes):
+def phase_flash_kernel(fa_kernel, fa_ref, prefill_shapes, f32_shapes,
+                       moe_shapes):
     """The main path's shape in bf16 (as it runs) and in f32 (a tight
-    check over its 32 KV tiles), the f32 ``decode_vs_prefill`` shape, and
-    the reference's sweep; the plain version's f32 einsums with TF32
-    off."""
+    check over its 32 KV tiles), the f32 ``decode_vs_prefill`` shape,
+    qwen3-moe's prefill shape in bf16 (a GQA group of 16 at head dim
+    128), and the reference's sweep; the plain version's f32 einsums with
+    TF32 off."""
     import torch
     main = (prefill_shapes["q"], prefill_shapes["kv_heads"],
             prefill_shapes["window"])
@@ -1505,7 +1641,11 @@ def phase_flash_kernel(fa_kernel, fa_ref, prefill_shapes, f32_shapes):
                  "decode_vs_prefill": _flash_case(
                      fa_kernel, fa_ref, f32_shapes["q"],
                      f32_shapes["kv_heads"], f32_shapes["window"],
-                     "float32", 1)}
+                     "float32", 1),
+                 "qwen3-moe": _flash_case(
+                     fa_kernel, fa_ref, moe_shapes["q"],
+                     moe_shapes["kv_heads"], moe_shapes["window"],
+                     "bfloat16", 2)}
         for i, (q_shape, hkv) in enumerate(FLASH_SWEEP):
             for window in (None, 64):
                 for dtype_name in ("float32", "bfloat16"):
@@ -1640,7 +1780,8 @@ def _wkv_backward_variant(dtype_name, d):
 # step by step at 0.03.  rwkv6-1.6b at random init is stiffer: at 0.03
 # its loss went 11.604, 11.587, 11.592 (this phase, NVIDIA H100 at 700 W);
 # at 1e-4 it falls step by step
-TRAIN_LR = {"llama3.2-3b": 0.03, "rwkv6-1.6b": 1e-4}
+TRAIN_LR = {"llama3.2-3b": 0.03, "rwkv6-1.6b": 1e-4,
+            "deepseek-v2-lite-16b": 0.03, "qwen3-moe-235b-a22b": 0.03}
 # One train step's gradients at full width and 2 layers, through the
 # kernels and through the plain versions (autograd through ref on the
 # card), from the same params and batch.  float32 (TF32 off): each leaf
@@ -1651,6 +1792,13 @@ TRAIN_LR = {"llama3.2-3b": 0.03, "rwkv6-1.6b": 1e-4}
 # them; so each bf16 path is held against the float32 plain step, and the
 # kernels' error may be at most twice the plain bf16 path's, plus 1e-2
 TRAIN_GRAD_TOL = 1e-3
+# The loss after one SGD step (at ``TRAIN_LR``) from the same float32
+# params (TF32 off), its gradients through the kernels against through the
+# plain versions, within 1e-4 x (1 + |loss|): the gradients agree to
+# ~1e-5 of their size, and at qwen3-moe's 2 layers the two stepped losses
+# differed by 5.9e-6 of the loss (NVIDIA H100, 700 W); a wrong backward
+# moves it by about the step's own change of the loss (0.4 there)
+STEP_LOSS_TOL = 1e-4
 
 
 def _grad_check(got, want, tol):
@@ -1665,6 +1813,17 @@ def _grad_check(got, want, tol):
         ok = (ok and bool(torch.isfinite(g).all())
               and bool((d <= tol * (1 + w.abs())).all()))
     return worst, ok
+
+
+def _past_tolerance(got, want, tol):
+    """The number of elements of ``got`` beyond tol x (1 + |want|) of
+    ``want``, by gradient, and the largest error."""
+    counts, worst = [], 0.0
+    for g, w in zip(got, want):
+        d = (g.float() - w).abs()
+        counts.append(int((d > tol * (1 + w.abs())).sum()))
+        worst = max(worst, float(d.max()))
+    return counts, worst
 
 
 def _backward_times(kernel_fn, plain_fn, library_fn, big):
@@ -1741,8 +1900,6 @@ def _flash_backward_case(fa_kernel, fa_ref, q_shape, hkv, window,
     tol = GRAD_TOLERANCE[dtype_name]
     err, ok = _grad_check(got, want, tol)
     scale = max(float(w.abs().max()) for w in want)
-    del want, got
-    _free()
     idx = torch.arange(s, device="cuda")
     if window is None or window >= s:
         def sdpa(*x):
@@ -1757,6 +1914,13 @@ def _flash_backward_case(fa_kernel, fa_ref, q_shape, hkv, window,
             return F.scaled_dot_product_attention(*x, attn_mask=mask,
                                                   enable_gqa=True)
         pairs = int(mask.sum())
+    # the elements past the tolerance, the kernel's and (as a yardstick,
+    # not checked) the library's backward's on the same inputs
+    lib_over, lib_err = _past_tolerance(_kept_grad(sdpa, (q, k, v), dout)(),
+                                        want, tol)
+    over, _ = _past_tolerance(got, want, tol)
+    del want, got
+    _free()
     # q, o, do read and dq written; k, v read and dk, dv written; the
     # work 2.5x the forward's (2 FLOP per multiply-add of q.k and p.v
     # over the unmasked pairs: the five products q.k, do.v, P^T do,
@@ -1773,14 +1937,17 @@ def _flash_backward_case(fa_kernel, fa_ref, q_shape, hkv, window,
                    (q, k, v), dout),
         _kept_grad(sdpa, (q, k, v), dout), big)
     bound = _bound(nbytes, ops, dtype_name)
-    # the design's own floor: seven products (S and dP in both kernels)
-    floor_ms = 1.4 * ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    # the design's own floor: nine products (S and dP in both kernels,
+    # dV's and dK's over bf16 high and low parts)
+    floor_ms = 1.8 * ops / PEAK_OPS_PER_S[dtype_name] * 1e3
     want_variant = FLASH_BACKWARD_VARIANT[dtype_name]
     right_variant = variants == {
         name: int(name == want_variant) for name in variants}
     rec = {"q_shape": list(q_shape), "kv_heads": hkv, "window": window,
            "dtype": dtype_name, "max_abs_err": err,
            "max_abs_grad": scale, "tolerance": tol,
+           "past_tolerance": over, "library_past_tolerance": lib_over,
+           "library_max_abs_err": lib_err,
            "lse_max_abs_err": lse_err, "lse_tolerance": LSE_TOLERANCE,
            "forward_with_lse_bit_identical": same_out,
            "variant_launches": variants, "bit_identical": bit_identical,
@@ -1795,10 +1962,12 @@ def _flash_backward_case(fa_kernel, fa_ref, q_shape, hkv, window,
     return rec
 
 
-def phase_flash_backward_kernel(fa_kernel, fa_ref, train_shapes):
+def phase_flash_backward_kernel(fa_kernel, fa_ref, train_shapes,
+                                moe_shapes):
     """The llama3.2-3b training shape in bf16 (as it runs) and in f32,
-    and a ragged windowed case; the plain version's f32 einsums with TF32
-    off."""
+    qwen3-moe's training shape in bf16 (a GQA group of 16 at head dim
+    128), and a ragged windowed case; the plain version's f32 einsums
+    with TF32 off."""
     import torch
     main = (train_shapes["q"], train_shapes["kv_heads"],
             train_shapes["window"])
@@ -1808,7 +1977,11 @@ def phase_flash_backward_kernel(fa_kernel, fa_ref, train_shapes):
         cases = {"main": _flash_backward_case(fa_kernel, fa_ref, *main,
                                               "bfloat16", 0),
                  "main-float32": _flash_backward_case(
-                     fa_kernel, fa_ref, *main, "float32", 0)}
+                     fa_kernel, fa_ref, *main, "float32", 0),
+                 "qwen3-moe": _flash_backward_case(
+                     fa_kernel, fa_ref, moe_shapes["q"],
+                     moe_shapes["kv_heads"], moe_shapes["window"],
+                     "bfloat16", 2)}
         for dtype_name in ("float32", "bfloat16"):
             cases[f"ragged-64-{dtype_name}"] = _flash_backward_case(
                 fa_kernel, fa_ref, (2, 4, 200, 64), 2, 64, dtype_name, 1)
@@ -1983,53 +2156,96 @@ def _grads_vs_plain(launchers, name, batch, seq, kernels):
     """One step's loss and gradients at full width and 2 layers, through
     the kernels and through the plain versions, in bf16 and in float32
     (the same values widened), from the same batch: each leaf's error
-    relative to the norm of the float32 plain step's gradient."""
-    import dataclasses
+    relative to the norm of the float32 plain step's gradient; and the
+    float32 loss after one SGD step at ``TRAIN_LR`` through each.
+
+    Lean on memory, for qwen3-moe's 6.2 B params at 2 layers: the plain
+    float32 gradients wait on the host, each other run's are compared
+    leaf by leaf, and the bf16 params are made again from their seed
+    rather than kept beside the float32 ones."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves, tree_map
-    cfg = dataclasses.replace(get_config(name), n_layers=2)
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
-    params = T.init_params(cfg, seed=1, device="cuda")
-    params32 = tree_map(lambda x: x.to(torch.float32), params)
+    cfg = _config(name, 2)
+    cfg32 = _config(name, 2, param_dtype="float32")
+    lr = TRAIN_LR[name]
     data = _train_batch(cfg, (batch,), seq, seed=1)
-    names = _leaf_paths(params)
 
-    def run(tree, c):
-        grads, metrics = T.loss_and_grads(tree, c, data)
-        return [g.to(torch.float32) for g in tree_leaves(grads)], float(
-            metrics["loss"])
+    def params():
+        return T.init_params(cfg, seed=1, device="cuda")
 
+    def widened():
+        p = params()
+        return tree_map(lambda x: x.to(torch.float32), p)
+
+    def grads(tree, c):
+        g, metrics = T.loss_and_grads(tree, c, data)
+        return tree_leaves(g), float(metrics["loss"])
+
+    def stepped_loss(tree, g):
+        """The loss after one SGD step of ``tree`` (in place)."""
+        with torch.no_grad():
+            for p, d in zip(tree_leaves(tree), g):
+                p.copy_(T.sgd_leaf(p, d, lr))
+            return float(T.loss_fn(tree, cfg32, data)[0])
+
+    def rel(got, want_host):
+        return [float((g.float() - w.to(g.device)).norm()
+                      / max(float(w.norm()), 1e-30))
+                for g, w in zip(got, want_host)]
+
+    names = _leaf_paths(T.init_params(cfg, device="meta"))
     saved = _tf32_off()
     try:
         set_counts(launchers)
-        kern, kern32 = run(params, cfg), run(params32, cfg32)
-        torch.cuda.synchronize()
+        with _PlainOps():
+            tree = widened()
+            g, plain32_loss = grads(tree, cfg32)
+            plain32 = [x.cpu() for x in g]
+            plain_step = stepped_loss(tree, g)
+            del tree, g
+            _free()
+        plain_counts = read_counts(launchers)
+        tree = widened()
+        g, kern32_loss = grads(tree, cfg32)
+        f32 = rel(g, plain32)
+        kern_step = stepped_loss(tree, g)
+        del tree, g
+        _free()
+        tree = params()
+        g, kern_loss = grads(tree, cfg)
+        bf16_kern = rel(g, plain32)
+        del g
+        _free()
         counts = read_counts(launchers)
         with _PlainOps():
-            plain, plain32 = run(params, cfg), run(params32, cfg32)
+            g, plain_loss = grads(tree, cfg)
+            bf16_plain = rel(g, plain32)
+        del tree, g
         torch.cuda.synchronize()
-        plain_counts = read_counts(launchers)
+        after_plain = read_counts(launchers)
     finally:
         _restore(saved)
-
-    def rel(got, want):
-        return [float((g - w).norm() / max(float(w.norm()), 1e-30))
-                for g, w in zip(got[0], want[0])]
-
-    f32 = rel(kern32, plain32)
-    bf16_kern, bf16_plain = rel(kern, plain32), rel(plain, plain32)
+    del plain32
+    _free()
     worst = max(range(len(names)), key=lambda i: bf16_kern[i]
                 - 2 * bf16_plain[i])
-    finite = all(bool(torch.isfinite(g).all()) for g in kern[0] + kern32[0])
+    finite = all(math.isfinite(x) for x in
+                 f32 + bf16_kern + [kern_step, plain_step])
+    step_err = abs(kern_step - plain_step)
     ok = (finite and max(f32) <= TRAIN_GRAD_TOL
+          and step_err <= STEP_LOSS_TOL * (1 + abs(plain_step))
           and all(a <= 2 * b + 1e-2 for a, b in zip(bf16_kern, bf16_plain))
           and all(counts[k] > 0 for k in kernels)
-          and plain_counts == counts)
-    rec = {"n_layers": cfg.n_layers,
-           "loss": {"kernels": kern[1], "plain": plain[1],
-                    "kernels_f32": kern32[1], "plain_f32": plain32[1]},
+          and all(n == 0 for n in plain_counts.values())
+          and after_plain == counts)
+    rec = {"n_layers": cfg.n_layers, "batch": batch,
+           "loss": {"kernels": kern_loss, "plain": plain_loss,
+                    "kernels_f32": kern32_loss, "plain_f32": plain32_loss},
+           "f32_loss_after_one_step": {"kernels": kern_step,
+                                       "plain": plain_step, "lr": lr,
+                                       "abs_err": step_err,
+                                       "tolerance": STEP_LOSS_TOL},
            "f32_grad_rel_err_max": max(f32),
            "f32_worst_leaf": names[max(range(len(names)),
                                        key=f32.__getitem__)],
@@ -2041,27 +2257,29 @@ def _grads_vs_plain(launchers, name, batch, seq, kernels):
                                "kernels": bf16_kern[worst],
                                "plain": bf16_plain[worst]},
            "launches": counts, "ok": ok}
-    del params, params32, kern, kern32, plain, plain32
-    _free()
     return rec
 
 
 def _train_phase(launchers, phase, name, kernels, batch=4, seq=2048,
-                 steps=3):
-    """Full-width ``name`` (random bf16 weights from seed 0) through
-    ``make_sharded_train_step`` (SGD at ``TRAIN_LR``, params updated in
-    place), ``steps`` steps on one fixed batch of ``batch`` x ``seq``
-    tokens, with every count set to 0 just before; one more step under
-    the profiler; then the gradients at 2 layers against the plain
-    versions (``_grads_vs_plain``).  ``kernels``: (forward, backward) wrapper names, each
-    launched once per layer per step, the forward twice (remat)."""
+                 steps=3, n_layers=None):
+    """Full-width ``name`` (random bf16 weights from seed 0), at its own
+    depth or cut to ``n_layers``, through ``make_sharded_train_step``
+    (SGD at ``TRAIN_LR``, params updated in place), ``steps`` steps on one
+    fixed batch of ``batch`` x ``seq`` tokens, with every count set to 0
+    just before: losses finite, the last below the first; one more step
+    under the profiler; then at 2 layers the gradients and the loss after
+    one step against the plain versions (``_grads_vs_plain``).
+    ``kernels``: (forward, backward) wrapper names, each launched once
+    per layer per step, the forward twice (remat); ``None`` for a path
+    with no kernel (MLA), where every count stays 0 and the plain
+    versions are the path itself, so there is nothing to hold it
+    against."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch.train import make_sharded_train_step
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves
-    cfg = get_config(name)
+    cfg = _config(name, n_layers)
     params = T.init_params(cfg, seed=0, device="cuda")
     data = _train_batch(cfg, (batch,), seq)
     step = make_sharded_train_step(
@@ -2070,44 +2288,52 @@ def _train_phase(launchers, phase, name, kernels, batch=4, seq=2048,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     set_counts(launchers)
-    losses, walls = [], []
+    losses, aux, walls = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         params, metrics = step(params, data)
         losses.append(float(metrics["loss"]))   # synchronizes
         walls.append(time.perf_counter() - t0)
+        aux.append(float(metrics["aux"]))
     counts = read_counts(launchers)
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_params = sum(t.numel() for t in tree_leaves(params))
     prof_wall, by_name = _profile(lambda: step(params, data))
     del params
     _free()
-    fwd, bwd = kernels
-    falling = all(b < a for a, b in zip(losses, losses[1:]))
-    ok = (all(math.isfinite(x) for x in losses) and falling
-          and counts[fwd] == 2 * cfg.n_layers * steps
-          and counts[bwd] == cfg.n_layers * steps)
-    versus = _grads_vs_plain(launchers, name, batch, seq, kernels)
+    ok = (all(math.isfinite(x) for x in losses + aux)
+          and losses[-1] < losses[0])
+    if kernels is None:
+        ok = ok and all(n == 0 for n in counts.values())
+        needles = ()
+        versus = {"ok": True, "skipped": "no kernel on this path"}
+    else:
+        fwd, bwd = kernels
+        ok = (ok and counts[fwd] == 2 * cfg.n_layers * steps
+              and counts[bwd] == cfg.n_layers * steps)
+        needles = {"flash_attention": ("flash_attention", "fa_bwd",
+                                       "fa_bwd_prep", "dkdv_wgmma",
+                                       "dq_wgmma"),
+                   "wkv6": ("wkv6_chunked", "wkv6_bwd")}[fwd]
+        versus = _grads_vs_plain(launchers, name, batch, seq, kernels)
     rec = {"config": cfg.name, "dtype": cfg.param_dtype, "params": n_params,
+           "n_layers": cfg.n_layers, "full_depth": n_layers is None,
            "batch": batch, "seq_len": seq, "lr": TRAIN_LR[name],
            "remat": cfg.remat,
-           "losses": losses, "step_wall_s": walls,
+           "losses": losses, "aux": aux, "step_wall_s": walls,
            "tokens_per_s": batch * seq / statistics.median(walls[1:]),
            "peak_memory_gib": peak, "launches": counts,
-           "launches_per_step": {k: counts[k] / steps for k in kernels},
+           "launches_per_step": {k: n / steps for k, n in counts.items()},
            **_share(by_name, prof_wall, "gemm", "nvjet", "elementwise",
-                    "reduce", *({"flash_attention": ("flash_attention",
-                                                     "fa_bwd", "fa_bwd_prep",
-                                                     "dkdv_wgmma",
-                                                     "dq_wgmma"),
-                                 "wkv6": ("wkv6_chunked", "wkv6_bwd")}[fwd])),
+                    "reduce", *needles),
+           **_groups(by_name),
            "vs_plain_2_layers": versus, "ok": ok and versus["ok"]}
     emit({"phase": phase, **rec})
     if not rec["ok"]:
-        raise RuntimeError(f"{name} training: losses not finite and "
-                           f"falling, launches other than 2 x {fwd} and 1 "
-                           f"x {bwd} a layer a step, or gradients apart "
-                           f"from the plain versions'")
+        raise RuntimeError(f"{name} training: losses not finite or the "
+                           f"last not below the first, launches other "
+                           f"than {kernels} expects, or gradients or the "
+                           f"stepped loss apart from the plain versions'")
     return counts
 
 
@@ -2130,9 +2356,31 @@ def phase_rwkv6_train(launchers):
     return counts, (4, h, 2048, cfg.d_model // h)
 
 
-def phase_fl_train_step(launchers, agg_ref, n_replicas=2, per_replica=2,
-                        h_local=2, seq=2048, rounds=2):
-    """``make_fl_train_step`` on full-width llama3.2-3b: ``n_replicas``
+def phase_moe_train(launchers):
+    """``_train_phase`` on each MoE config at its ``MOE_TRAIN_LAYERS``
+    depth: deepseek-v2-lite-16b (MLA, no kernel on its path) and
+    qwen3-moe-235b-a22b (flash_attention forward and backward).  Returns
+    the launches summed and qwen3-moe's attention shape."""
+    total, shape = {}, None
+    for name, n_layers in MOE_TRAIN_LAYERS.items():
+        cfg = _config(name, n_layers)
+        kernels = (("flash_attention", "flash_attention_backward")
+                   if _attention_layers(cfg) else None)
+        counts = _train_phase(launchers, "moe_train", name, kernels,
+                              n_layers=n_layers)
+        total = {k: total.get(k, 0) + n for k, n in counts.items()}
+        if kernels:
+            shape = {"q": (4, cfg.n_heads, 2048, cfg.head_dim),
+                     "kv_heads": cfg.n_kv_heads,
+                     "window": cfg.sliding_window}
+    return total, shape
+
+
+def phase_fl_train_step(launchers, agg_ref, name="llama3.2-3b",
+                        n_layers=None, phase="fl_train_step", n_replicas=2,
+                        per_replica=2, h_local=2, seq=2048, rounds=2):
+    """``make_fl_train_step`` on full-width ``name`` (at its own depth or
+    cut to ``n_layers``): ``n_replicas``
     replicas of one initial model, ``per_replica`` x ``seq`` tokens each,
     ``h_local`` local steps, ``rounds`` rounds.  A tap on the aggregation
     op holds each leaf of the aggregate the kernel returns against
@@ -2146,7 +2394,7 @@ def phase_fl_train_step(launchers, agg_ref, n_replicas=2, per_replica=2,
     from repro_torch.launch.train import make_fl_train_step
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves, tree_map
-    cfg = get_config("llama3.2-3b")
+    cfg = _config(name, n_layers)
     base = T.init_params(cfg, seed=0, device="cuda")
     rep = tree_map(lambda x: torch.stack([x] * n_replicas), base)
     del base
@@ -2155,7 +2403,7 @@ def phase_fl_train_step(launchers, agg_ref, n_replicas=2, per_replica=2,
     step = make_fl_train_step(
         cfg, n_replicas,
         InputShape("fl_smoke", seq, n_replicas * per_replica, "train"),
-        lr=TRAIN_LR["llama3.2-3b"], h_local=h_local)
+        lr=TRAIN_LR[name], h_local=h_local)
     real = aggregation.agg_ops
     checks = {"err": 0.0, "ok": True, "calls": 0, "samples": []}
 
@@ -2181,13 +2429,14 @@ def phase_fl_train_step(launchers, agg_ref, n_replicas=2, per_replica=2,
     torch.cuda.reset_peak_memory_stats()
     aggregation.agg_ops = Tap()
     set_counts(launchers)
-    walls, losses = [], []
+    walls, losses, aux = [], [], []
     try:
         for _ in range(rounds):
             t0 = time.perf_counter()
             rep, metrics = step(rep, data)
             losses.append(float(metrics["loss"]))   # synchronizes
             walls.append(time.perf_counter() - t0)
+            aux.append(float(metrics["aux"]))
     finally:
         aggregation.agg_ops = real
     counts = read_counts(launchers)
@@ -2199,15 +2448,17 @@ def phase_fl_train_step(launchers, agg_ref, n_replicas=2, per_replica=2,
         torch.equal(x[0].flatten()[:4096], s.to(x.dtype))
         for x, s in zip(leaves, checks["samples"]))
     steps = rounds * n_replicas * h_local
+    attention = _attention_layers(cfg)
     ok = (counts["fedavg_agg"] == rounds and checks["calls"] == rounds
           and checks["ok"] and slots_equal and slots_are_aggregate
-          and all(math.isfinite(x) for x in losses)
-          and counts["flash_attention"] == 2 * cfg.n_layers * steps
-          and counts["flash_attention_backward"] == cfg.n_layers * steps)
-    emit({"phase": "fl_train_step", "ok": ok, "config": cfg.name,
+          and all(math.isfinite(x) for x in losses + aux)
+          and counts["flash_attention"] == 2 * attention * steps
+          and counts["flash_attention_backward"] == attention * steps)
+    emit({"phase": phase, "ok": ok, "config": cfg.name,
+          "n_layers": cfg.n_layers,
           "n_replicas": n_replicas, "tokens_per_replica": per_replica * seq,
           "h_local": h_local, "agg_dtype": "float32", "rounds": rounds,
-          "round_wall_s": walls, "losses": losses,
+          "round_wall_s": walls, "losses": losses, "aux": aux,
           "tokens_per_s": n_replicas * per_replica * seq * h_local
           / statistics.median(walls),
           "peak_memory_gib": peak, "aggregate_max_abs_err": checks["err"],
@@ -2218,9 +2469,10 @@ def phase_fl_train_step(launchers, agg_ref, n_replicas=2, per_replica=2,
     checks.clear()
     _free()
     if not ok:
-        raise RuntimeError("fl_train_step: not one fedavg_agg launch a "
-                           "round, replica slots apart from the aggregate, "
-                           "or the aggregate apart from its plain version")
+        raise RuntimeError(f"{phase}: not one fedavg_agg launch a round, "
+                           f"replica slots apart from the aggregate, the "
+                           f"aggregate apart from its plain version, or "
+                           f"attention launches off")
     return counts
 
 
@@ -2287,20 +2539,31 @@ def main() -> int:
         phase_transformer_decode(launchers)
         f32_shapes = phase_decode_vs_prefill(launchers)
         wkv_launches, wkv_shape = phase_rwkv6(launchers)
+        moe_launches, moe_shapes = phase_moe_prefill(launchers)
+        fa_launches += moe_launches
+        phase_transformer_decode(launchers, "deepseek-v2-lite-16b",
+                                 "moe_decode")
+        phase_moe_decode_vs_prefill(launchers)
         fa_case = phase_flash_kernel(fa_kernel, fa_ref, prefill_shapes,
-                                     f32_shapes)
+                                     f32_shapes, moe_shapes)
         wkv_case = phase_wkv_kernel(wkv_kernel, wkv_ref, wkv_shape)
         train, train_shapes = phase_transformer_train(launchers)
         rwkv_train, rwkv_train_shape = phase_rwkv6_train(launchers)
+        moe_train, moe_train_shapes = phase_moe_train(launchers)
         fl_train = phase_fl_train_step(launchers, agg_ref)
-        launches += fl_train["fedavg_agg"]
-        fa_launches += train["flash_attention"] + fl_train["flash_attention"]
-        fa_bwd_launches = (train["flash_attention_backward"]
-                           + fl_train["flash_attention_backward"])
+        moe_fl = phase_fl_train_step(launchers, agg_ref,
+                                     "deepseek-v2-lite-16b", n_layers=2,
+                                     phase="moe_fl_train_step")
+        launches += fl_train["fedavg_agg"] + moe_fl["fedavg_agg"]
+        fa_launches += sum(c["flash_attention"]
+                           for c in (train, moe_train, fl_train, moe_fl))
+        fa_bwd_launches = sum(c["flash_attention_backward"]
+                              for c in (train, moe_train, fl_train, moe_fl))
         wkv_launches += rwkv_train["wkv6"]
         wkv_bwd_launches = rwkv_train["wkv6_backward"]
         fa_bwd_case = phase_flash_backward_kernel(fa_kernel, fa_ref,
-                                                  train_shapes)
+                                                  train_shapes,
+                                                  moe_train_shapes)
         wkv_bwd_case = phase_wkv_backward_kernel(wkv_kernel, wkv_ref,
                                                  rwkv_train_shape)
     except Exception:  # report the failed phase, then fail the run

@@ -18,13 +18,19 @@
 // heads, S = 2048, D = 128, causal) the function's work is five products
 // over the causal half, 2.6e11 FLOP: 0.26 ms at the bf16 tensor-core rate,
 // far above the 0.08 ms that its 268 MB take at 3.35 TB/s.  This design
-// runs seven products (S and dP are computed in both kernels below, so
-// that no gradient needs a float atomic), 0.365 ms at that rate.  What it
-// does about the bound:
+// runs nine products (S and dP are computed in both kernels below, so
+// that no gradient needs a float atomic, and dV's and dK's products run
+// twice, on P's and dZ's bf16 high and low parts), 0.47 ms at that rate.
+// What it does about the bound:
 //
-// - Every product is a wgmma on bf16 operands with f32 accumulators.  P
-//   and dZ are rounded to bf16 as the A operands of their products, as
-//   FA2/FA3 do (the forward rounds P the same way); every sum stays f32.
+// - Every product is a wgmma on bf16 operands with f32 accumulators.  dQ
+//   takes dZ rounded to bf16 as its A operand, as FA2/FA3 do (the forward
+//   rounds P the same way).  dV and dK take P and dZ as two bf16 parts
+//   each, hi = bf16(x) and lo = bf16(x - hi), ~2^-17 of x together: they
+//   sum over every row of every query head of the GQA group (32,768
+//   terms at qwen3-moe's 16 heads over 2048 rows), where one bf16 rounding
+//   of each term put single elements past 2e-2 x (1 + |grad|) of the f32
+//   gradient (as it does in SDPA's backward).  Every sum stays f32.
 // - `dkdv_wgmma`, one block for each (b, kv head, 128 keys): K and V stay
 //   in shared memory (TMA); warpgroup 2 produces (setmaxnreg 24) and one
 //   of its threads streams the visible 64-row query tiles of every query
@@ -34,9 +40,10 @@
 //   tile: S^T = K Q^T and dP^T = V dO^T (SS, both operands K-major as
 //   stored, as the forward's Q K^T), P^T and dZ^T in registers (the lse
 //   and delta of each column from shared memory), then dV += P^T dO and
-//   dK += dZ^T Q (RS: the f32 accumulator fragment packed to bf16 pairs
-//   is the A operand, as the forward's P for P.V; dO and Q through
-//   MN-major descriptors, as the forward reads V).  dK and dV stay in f32
+//   dK += dZ^T Q, each over the high part and then the low part (RS: the
+//   f32 accumulator fragment packed to bf16 pairs is the A operand, as
+//   the forward's P for P.V; dO and Q through MN-major descriptors, as
+//   the forward reads V).  dK and dV stay in f32
 //   registers over the whole group and are scaled and rounded once: no
 //   atomics, a fixed order, a bit-identical result every call.
 // - `dq_wgmma`, one block for each (b, q head, 128 query rows): Q and dO
@@ -132,10 +139,19 @@ __device__ __forceinline__ void issue_rs(float (&d)[D / 2],
   wgmma_commit();
 }
 
-__device__ __forceinline__ void pack16(const float (&x)[32],
-                                       uint32_t (&a)[16]) {
+// x (a 64 x 64 product's accumulator fragment) as two A fragments of
+// bf16 pairs, the first element in each pair's low half: hi = bf16(x) and
+// lo = bf16(x - hi); x - hi is exact in f32, and hi + lo is within
+// ~2^-17 of x.  Pair by pair, so that x's registers free as they go.
+__device__ __forceinline__ void split16(const float (&x)[32],
+                                       uint32_t (&hi)[16],
+                                       uint32_t (&lo)[16]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+  for (int i = 0; i < 16; ++i) {
+    hi[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+    lo[i] = pack_bf16(x[2 * i] - __uint_as_float(hi[i] << 16),
+                      x[2 * i + 1] - __uint_as_float(hi[i] & 0xffff0000u));
+  }
 }
 
 __device__ __forceinline__ bool allowed(int row, int col, int S, int causal,
@@ -283,7 +299,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int x = 0; x < D / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
     float st[32], dpt[32];
-    uint32_t pa[16], za[16];
+    uint32_t pa[16], za[16], pl[16], zl[16];
 
     mbar_wait(kv_full, 0);
     for (int i = 0; i < n_items; ++i) {
@@ -322,10 +338,12 @@ __global__ void __launch_bounds__(kThreads, 1)
             dpt[x] = p * (dpt[x] - delta);
           }
         }
-        pack16(st, pa);
-        pack16(dpt, za);
-        issue_rs<D>(dv_acc, pa, dos);  // dV += P^T dO
-        issue_rs<D>(dk_acc, za, qs);   // dK += dZ^T Q
+        split16(st, pa, pl);
+        split16(dpt, za, zl);
+        issue_rs<D>(dv_acc, pa, dos);  // dV += P_hi^T dO
+        issue_rs<D>(dk_acc, za, qs);   // dK += dZ_hi^T Q
+        issue_rs<D>(dv_acc, pl, dos);  // dV += P_lo^T dO
+        issue_rs<D>(dk_acc, zl, qs);   // dK += dZ_lo^T Q
         wgmma_wait<0>();
         fence_regs(dv_acc);
         fence_regs(dk_acc);

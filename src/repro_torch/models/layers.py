@@ -1,14 +1,17 @@
 """Layer library of the transformer stack (plain-dict params, PyTorch).
 
-The counterpart of the reference's ``models/layers.py`` for this slice:
-RMSNorm / non-parametric LN, RoPE (interleaved pairs), GQA attention
-(+qk-norm, sliding window) with its one-token decode over a ring-buffer
-cache, SwiGLU, and the RWKV6 time / channel mix with their decode forms.
-Full-sequence attention runs through ``kernels/flash_attention`` and the
-RWKV6 recurrence through ``kernels/wkv6``, whose gradients on the card
-come from their backward kernels (the ops' autograd Functions); the
-decode steps are plain torch, as they are plain jnp in the reference.  MLA, MoE and Mamba raise
-``NotImplementedError`` until their slice.
+The counterpart of the reference's ``models/layers.py``: RMSNorm /
+non-parametric LN, RoPE (interleaved pairs), GQA attention (+qk-norm,
+sliding window) with its one-token decode over a ring-buffer cache, MLA
+(DeepSeek-V2's latent attention) with its decode over the latent cache,
+SwiGLU, the routed MoE FFN (grouped and flat dispatch) with its Switch
+aux loss, and the RWKV6 time / channel mix with their decode forms.
+GQA's full-sequence attention runs through ``kernels/flash_attention``
+and the RWKV6 recurrence through ``kernels/wkv6``, whose gradients on
+the card come from their backward kernels (the ops' autograd Functions);
+MLA, the MoE FFN and the decode steps are plain torch, as they are plain
+jnp in the reference.  Mamba raises ``NotImplementedError`` until its
+slice.
 
 Weights keep the reference's ``(din, dout)`` layout, so every projection
 is ``x @ W`` as in the reference, and the dtype casts follow the
@@ -26,7 +29,7 @@ from ..configs.base import ModelConfig
 from ..kernels.flash_attention import ops as fa
 from ..kernels.wkv6 import ops as wkv_ops
 
-_LATER = ("is not ported yet: it comes with the MLA, MoE and Mamba slice "
+_LATER = ("is not ported yet: it comes with the Mamba slice "
           "(ROADMAP.md §1)")
 
 
@@ -202,33 +205,107 @@ def gqa_decode(p, x, cache, pos: int, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Later slices ----------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2) ------------------------------
 # ---------------------------------------------------------------------------
 def mla_init(cfg: ModelConfig, init: Init):
-    raise NotImplementedError(f"MLA attention {_LATER}")
+    d, h = cfg.d_model, cfg.n_heads
+    r = cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dt = param_dtype(cfg)
+    return {
+        "wq": init.normal((d, h * (dn + dr)), d, dt),
+        "wkv_a": init.normal((d, r + dr), d, dt),   # latent + shared rope key
+        "wkv_b": init.normal((r, h * (dn + dv)), r, dt),
+        "wo": init.normal((h * dv, d), h * dv, dt),
+        "kv_norm": init.full((r,), 1.0),
+    }
+
+
+def _mla_qkv(p, x, cfg: ModelConfig, positions):
+    h = cfg.n_heads
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, h, dn + dr).transpose(1, 2)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv = x @ p["wkv_a"]                                   # (B,S,r+dr)
+    c_kv, k_rope = kv[..., :cfg.kv_lora_rank], kv[..., cfg.kv_lora_rank:]
+    c_kv = head_rmsnorm(c_kv, p["kv_norm"])
+    k_rope = apply_rope(k_rope[:, None], positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope                  # k_rope (B,1,S,dr)
+
+
+def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, mask, cfg: ModelConfig):
+    """Attention over the latent cache, in f32.
+
+    q_nope: (B,H,Sq,dn); q_rope: (B,H,Sq,dr); c_kv: (B,Skv,r); k_rope:
+    (B,1,Skv,dr); mask: broadcasts to (B,H,Sq,Skv), True where a key is
+    seen.  Key decompression is folded into the query (q_nope @ wk_b), so
+    the scores are taken over the rank-r latent, as the reference's."""
+    h = cfg.n_heads
+    dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    wkv_b = p["wkv_b"].reshape(r, h, dn + dv).to(torch.float32)
+    wk_b, wv_b = wkv_b[..., :dn], wkv_b[..., dn:]         # (r,H,dn),(r,H,dv)
+    c = c_kv.to(torch.float32)
+    q_lat = torch.einsum("bhsd,rhd->bhsr", q_nope.to(torch.float32), wk_b)
+    scores = (torch.einsum("bhsr,btr->bhst", q_lat, c)
+              + q_rope.to(torch.float32)
+              @ k_rope.to(torch.float32).transpose(-1, -2))
+    scores = scores / math.sqrt(dn + cfg.qk_rope_head_dim)
+    scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bhsr", probs, c)
+    return torch.einsum("bhsr,rhd->bhsd", o_lat, wv_b)
 
 
 def mla_apply(p, x, cfg: ModelConfig, positions):
-    raise NotImplementedError(f"MLA attention {_LATER}")
+    """Full-sequence causal MLA (prefill), plain torch as in the
+    reference (it does not go through the attention kernel)."""
+    b, s, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
+    idx = torch.arange(s, device=x.device)
+    mask = idx[None, :] <= idx[:, None]
+    o = _mla_attend(p, q_nope, q_rope, c_kv, k_rope, mask, cfg)
+    o = o.to(x.dtype).transpose(1, 2).reshape(b, s,
+                                              cfg.n_heads * cfg.v_head_dim)
+    return o @ p["wo"]
 
 
 def mla_init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                    device):
-    raise NotImplementedError(f"MLA attention {_LATER}")
+    return {
+        "c_kv": torch.zeros((batch, cache_len, cfg.kv_lora_rank),
+                            dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, cache_len, cfg.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+    }
 
 
-def mla_decode(p, x, cache, pos, cfg: ModelConfig):
-    raise NotImplementedError(f"MLA attention {_LATER}")
+def mla_decode(p, x, cache, pos: int, cfg: ModelConfig):
+    """One-token MLA decode. x: (B, 1, D); cache c_kv: (B, L, r), k_rope:
+    (B, L, dr).  The new latent and rope key go to slot ``pos`` (the
+    reference's ``dynamic_update_slice``, which clamps the slot to
+    L - 1), written into the cache's tensors in place.  Returns
+    (out (B, 1, D), cache)."""
+    b = x.shape[0]
+    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, posv)
+    cache_len = cache["c_kv"].shape[1]
+    slot = min(pos, cache_len - 1)
+    cache["c_kv"][:, slot] = c_kv[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][:, slot] = k_rope[:, 0, 0].to(cache["k_rope"].dtype)
+    valid = torch.arange(cache_len, device=x.device) <= pos
+    o = _mla_attend(p, q_nope, q_rope, cache["c_kv"],
+                    cache["k_rope"][:, None], valid, cfg)
+    o = o.to(x.dtype).transpose(1, 2).reshape(b, 1,
+                                              cfg.n_heads * cfg.v_head_dim)
+    return o @ p["wo"], cache
 
 
-def moe_init(cfg: ModelConfig, init: Init):
-    raise NotImplementedError(f"the MoE FFN {_LATER}")
-
-
-def moe_apply(p, x, cfg: ModelConfig):
-    raise NotImplementedError(f"the MoE FFN {_LATER}")
-
-
+# ---------------------------------------------------------------------------
+# Later slices ----------------------------------------------------------------
+# ---------------------------------------------------------------------------
 def mamba_init(cfg: ModelConfig, init: Init):
     raise NotImplementedError(f"the Mamba block {_LATER}")
 
@@ -258,6 +335,113 @@ def swiglu_init(cfg: ModelConfig, init: Init, d_ff: Optional[int] = None):
 
 def swiglu_apply(p, x):
     return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+
+
+def moe_init(cfg: ModelConfig, init: Init):
+    d, e = cfg.d_model, cfg.n_experts
+    f = cfg.moe_d_ff or cfg.d_ff
+    dt = param_dtype(cfg)
+    p = {
+        "router": init.normal((d, e), d, torch.float32),
+        "we1": init.normal((e, d, f), d, dt),
+        "we3": init.normal((e, d, f), d, dt),
+        "we2": init.normal((e, f, d), f, dt),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = swiglu_init(cfg, init, d_ff=f * cfg.n_shared_experts)
+    return p
+
+
+def _route(p, xt, k: int):
+    """Top-k routing of tokens ``xt`` (..., D): the router in f32 (the
+    reference's ``x @ router`` promotes bf16 to f32), softmax, top-k, the
+    k weights renormalized.  Returns (top_w, top_i), (..., k)."""
+    probs = torch.softmax(xt.to(torch.float32) @ p["router"], dim=-1)
+    top_w, top_i = torch.topk(probs, k, dim=-1)
+    return top_w / top_w.sum(dim=-1, keepdim=True), top_i
+
+
+def _experts(p, xe, spec: str):
+    """The routed SwiGLU experts over dispatched tokens ``xe`` (``spec``
+    names its axes, the expert axis ``e``, features last)."""
+    lhs = spec[:-1]
+    h = (F.silu(torch.einsum(f"{spec},edf->{lhs}f", xe, p["we1"]))
+         * torch.einsum(f"{spec},edf->{lhs}f", xe, p["we3"]))
+    return torch.einsum(f"{lhs}f,efd->{spec}", h, p["we2"])
+
+
+def moe_apply(p, x, cfg: ModelConfig):
+    """Top-k routed experts with capacity-based dispatch; tokens beyond an
+    expert's capacity drop to the shared experts (or to nothing).
+
+    Two dispatch paths, as the reference's (both plain torch there and
+    here, no kernel):
+
+    * grouped (``cfg.moe_grouped`` and S > 1): routing and capacity per
+      sequence; each expert takes its ``cap`` most-preferred tokens of
+      the row, and each token gathers its k experts' outputs back (both
+      directions gathers);
+    * flat (otherwise, every decode step): tokens of the whole batch
+      flattened, a global capacity, each expert its top-``cap`` gates,
+      combined with a scatter-add.
+
+    Gathers index the flattened tokens, so their backward is an
+    ``index_add`` into (tokens, D), not a (B, E, S, D) buffer."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.n_experts_active
+    if cfg.moe_grouped and s > 1:
+        top_w, top_i = _route(p, x, k)                        # (B,S,k)
+        gates = torch.zeros((b, s, e), dtype=torch.float32,
+                            device=x.device).scatter(-1, top_i, top_w)
+        cap = max(1, min(s, int(k * s / e * cfg.capacity_factor)))
+        g_bet = gates.detach().transpose(1, 2)                # (B,E,S)
+        # each expert's preference order over the row (stable, as
+        # jnp.argsort), and every token's rank in it: index math only
+        order = torch.argsort(-g_bet, dim=-1, stable=True)
+        ranks = torch.empty_like(order).scatter_(
+            -1, order, torch.arange(s, device=x.device).expand_as(order))
+        rows = torch.arange(b, device=x.device)[:, None, None]
+        sel_i = order[..., :cap]                              # (B,E,C)
+        xe = x.reshape(b * s, d)[rows * s + sel_i]            # (B,E,C,D)
+        ye = _experts(p, xe, "becd").to(x.dtype)              # (B,E,C,D)
+        # combine: token (b, s) finds its slot in each chosen expert
+        slot = ranks.transpose(1, 2).gather(2, top_i)         # (B,S,k)
+        valid = slot < cap
+        idx = top_i * cap + torch.clamp(slot, max=cap - 1)
+        yi = ye.reshape(b * e * cap, d)[rows * (e * cap) + idx]  # (B,S,k,D)
+        w = (top_w * valid.to(torch.float32))[..., None]
+        out = torch.sum(w.to(yi.dtype) * yi, dim=2)           # (B,S,D)
+        if cfg.n_shared_experts:
+            out = out + swiglu_apply(p["shared"], x)
+        return out.to(x.dtype)
+    t = b * s
+    xt = x.reshape(t, d)
+    top_w, top_i = _route(p, xt, k)                           # (T,k)
+    gates = torch.zeros((t, e), dtype=torch.float32,
+                        device=x.device).scatter(-1, top_i, top_w)
+    cap = max(1, min(t, int(k * t / e * cfg.capacity_factor)))
+    # each expert's top-cap gates; where fewer than cap tokens chose it,
+    # it also takes tokens at gate 0 (which ones is unspecified, in either
+    # package), whose outputs are weighted by 0
+    sel_w, sel_i = torch.topk(gates.T, cap, dim=-1)           # (E,C)
+    ye = _experts(p, xt[sel_i], "ecd")                        # (E,C,D)
+    ye = ye * sel_w[..., None].to(ye.dtype)
+    out = torch.zeros((t, d), dtype=ye.dtype, device=x.device).index_add(
+        0, sel_i.reshape(-1), ye.reshape(-1, d))
+    if cfg.n_shared_experts:
+        out = out + swiglu_apply(p["shared"], xt)
+    return out.reshape(b, s, d).to(x.dtype)
+
+
+def moe_aux_loss(p, x, cfg: ModelConfig):
+    """Switch-style load-balance loss (importance x load) of the tokens
+    ``x`` (B, S, D), in f32."""
+    xt = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax(xt.to(torch.float32) @ p["router"], dim=-1)
+    importance = probs.mean(dim=0)
+    top1 = probs.argmax(dim=-1)
+    load = F.one_hot(top1, cfg.n_experts).to(torch.float32).mean(dim=0)
+    return cfg.n_experts * torch.sum(importance * load)
 
 
 # ---------------------------------------------------------------------------

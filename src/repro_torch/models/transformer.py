@@ -8,8 +8,9 @@ cross-entropy, ``loss_fn`` and ``make_train_step``, the decode cache and
 leading layer axis and scans over it; here ``params["blocks"]`` is a list
 with one dict per block, and the layer loop is a Python loop.  Gradients
 come from autograd; on the card, attention's and the RWKV6 recurrence's
-from their backward kernels.  MLA, MoE and Mamba blocks raise
-``NotImplementedError`` until their slice.
+from their backward kernels.  MLA and the MoE FFN (with its Switch aux
+loss, summed over the blocks) are plain torch, as in the reference;
+Mamba blocks raise ``NotImplementedError`` until their slice.
 """
 from __future__ import annotations
 
@@ -126,6 +127,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
 # Forward (prefill) -----------------------------------------------------------
 # ---------------------------------------------------------------------------
 def _apply_sublayer(sp, x, cfg: ModelConfig, sub: Sublayer, positions):
+    """One sublayer over ``x``: returns (x, its MoE aux loss), the aux
+    ``None`` where the FFN is not MoE (the reference's zeros, without a
+    kernel launch for them)."""
+    aux = None
     h = L.norm_apply(sp["norm1"], x, cfg)
     if sub.mixer == "gqa":
         y = L.gqa_apply(sp["mixer"], h, cfg, positions)
@@ -141,32 +146,41 @@ def _apply_sublayer(sp, x, cfg: ModelConfig, sub: Sublayer, positions):
         x = x + L.swiglu_apply(sp["ffn"], h)
     elif sub.ffn == "moe":
         x = x + L.moe_apply(sp["ffn"], h, cfg)
+        aux = L.moe_aux_loss(sp["ffn"], h, cfg)
     elif sub.ffn == "rwkv_channel":
         y, _ = L.rwkv6_channel_mix(sp["mixer"]["channel"], h)
         x = x + y
-    return x
+    return x, aux
 
 
 def _apply_block(block, x, cfg: ModelConfig, subs, positions):
+    """Every sublayer of one block: (x, the block's aux loss or None)."""
+    aux = None
     for j, sub in enumerate(subs):
-        x = _apply_sublayer(block[f"sub{j}"], x, cfg, sub, positions)
-    return x
+        x, a = _apply_sublayer(block[f"sub{j}"], x, cfg, sub, positions)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def apply_blocks(params, x, cfg: ModelConfig, positions):
-    """Every block over ``x``; returns (x, the MoE aux loss: 0 until MoE
-    is ported).  With ``cfg.remat`` and grad enabled each block is
-    checkpointed, as the reference's ``jax.checkpoint(body)``: backward
-    keeps only every block's input and recomputes the block."""
+    """Every block over ``x``; returns (x, the MoE aux loss summed over
+    the blocks, a 0-d f32 tensor).  With ``cfg.remat`` and grad enabled
+    each block is checkpointed, as the reference's ``jax.checkpoint(body)``:
+    backward keeps only every block's input and recomputes the block,
+    aux loss included."""
     subs = block_template(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in params["blocks"]:
         if remat:
-            x = checkpoint(_apply_block, block, x, cfg, subs, positions,
-                           use_reentrant=False)
+            x, a = checkpoint(_apply_block, block, x, cfg, subs, positions,
+                              use_reentrant=False)
         else:
-            x = _apply_block(block, x, cfg, subs, positions)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _apply_block(block, x, cfg, subs, positions)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def embed_inputs(params, cfg: ModelConfig, inputs):
@@ -183,8 +197,8 @@ def unembed(params, cfg: ModelConfig, h):
 
 def forward(params, cfg: ModelConfig, inputs,
             positions: Optional[torch.Tensor] = None):
-    """Final hidden states (B, S, D) and the MoE aux loss (0: no MoE in
-    this slice).  inputs: (B, S) int tokens or (B, S, D) embeddings."""
+    """Final hidden states (B, S, D) and the MoE aux loss (0 without an
+    MoE FFN).  inputs: (B, S) int tokens or (B, S, D) embeddings."""
     s = inputs.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=inputs.device)

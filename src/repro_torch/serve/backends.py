@@ -53,10 +53,13 @@ class TransformerBackend:
     Builds one step (plus its KV cache) per padded batch width; caches
     are threaded through successive dispatches of the same width and
     updated in place (with ``donate=False`` each step works on a copy,
-    so the previous cache survives).  Request sample ids map to
-    vocabulary tokens.  ``params`` holds the seeded random model (the
-    port's layout; assign converted params to serve those);
-    ``last_logits`` holds the latest step's logits.
+    so the previous cache survives).  Any config of the port's families
+    decodes here: GQA and RWKV6, and MLA with MoE (deepseek-v2-lite-16b:
+    ``mla_decode`` over the latent cache, the flat MoE dispatch, whose
+    capacity is global over the batch, as in the reference).  Request
+    sample ids map to vocabulary tokens.  ``params`` holds the seeded
+    random model (the port's layout; assign converted params to serve
+    those); ``last_logits`` holds the latest step's logits.
     """
 
     has_labels = False

@@ -352,10 +352,11 @@ def _tensor_core_backward_emulation(q, k, v, do, causal=True, window=None):
     """The bf16 backward kernels' arithmetic in plain torch: bf16 inputs,
     the forward's (emulated) bf16 output and log-sum-exp, delta =
     rowsum(do o) in f32 from the bf16 output, f32 scores S and dP,
-    P = 2^(S log2(e) / sqrt(D) - lse) and dZ = P (dP - delta) in f32, each
-    rounded to bf16 as the A operand of its products (dV = P^T dO,
-    dK = dZ^T Q, dQ = dZ K), f32 sums, dK and dV summed over the group in
-    f32, one bf16 rounding of each gradient."""
+    P = 2^(S log2(e) / sqrt(D) - lse) and dZ = P (dP - delta) in f32; dZ
+    rounded to bf16 as the A operand of dQ = dZ K, P and dZ as bf16 high
+    and low parts (hi = bf16(x), lo = bf16(x - hi)) as the A operands of
+    dV = P^T dO and dK = dZ^T Q; f32 sums, dK and dV summed over the group
+    in f32, one bf16 rounding of each gradient."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     group = hq // hkv
@@ -375,10 +376,16 @@ def _tensor_core_backward_emulation(q, k, v, do, causal=True, window=None):
     x = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * (LOG2E * scale)
     p = torch.exp2(x - lse[..., None]).masked_fill(~ok, 0.0)
     dz = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta)
-    pb, zb = (t.to(torch.bfloat16).float() for t in (p, dz))
-    dq = torch.einsum("bhqk,bhkd->bhqd", zb, kf) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", zb, qf)
-    dv = torch.einsum("bhqk,bhqd->bhkd", pb, dof)
+    def hi_lo(t):
+        hi = t.to(torch.bfloat16).float()
+        return hi, (t - hi).to(torch.bfloat16).float()
+
+    (p_hi, p_lo), (z_hi, z_lo) = hi_lo(p), hi_lo(dz)
+    dq = torch.einsum("bhqk,bhkd->bhqd", z_hi, kf) * scale
+    dk = (torch.einsum("bhqk,bhqd->bhkd", z_hi, qf)
+          + torch.einsum("bhqk,bhqd->bhkd", z_lo, qf))
+    dv = (torch.einsum("bhqk,bhqd->bhkd", p_hi, dof)
+          + torch.einsum("bhqk,bhqd->bhkd", p_lo, dof))
     dk, dv = (t.view(b, hkv, group, s, d).sum(dim=2) for t in (dk, dv))
     return [t.to(torch.bfloat16) for t in (dq, dk * scale, dv)]
 
@@ -391,9 +398,10 @@ def _tensor_core_backward_emulation(q, k, v, do, causal=True, window=None):
 ])
 def test_tensor_core_backward_arithmetic_holds_card_tolerance(
         b, hq, hkv, s, d, causal, window):
-    """The bf16 backward kernels round P and dZ to bf16 before their
-    products, where the CUDA-core kernels keep them in f32, and read the
-    forward's bf16 output (delta) and log-sum-exp: their arithmetic,
+    """The bf16 backward kernels round dZ to bf16 before dQ's product and
+    split P and dZ into bf16 high and low parts for dV's and dK's, where
+    the CUDA-core kernels keep them in f32, and read the forward's bf16
+    output (delta) and log-sum-exp: their arithmetic,
     emulated here, stays within the card's bf16 tolerance 2e-2 x
     (1 + |grad|) of ``jax.vjp`` of the reference's oracle and of the
     port's autograd through ``ref.attention``, both in f32 on the same

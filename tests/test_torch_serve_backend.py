@@ -30,6 +30,15 @@ from repro_torch.serve import CNNBackend, TransformerBackend
 TOL = 1e-4
 
 
+def _jax_cache(jcfg, batch, cache_len):
+    """The reference's decode cache, built under ``jit``: called eagerly,
+    its ``vmap`` over the blocks leaves JAX (0.9) retracing every later
+    eager ``jnp.ones``, which ``tests/test_contracts.py`` counts as
+    recompiles when it runs after this file in the same process."""
+    return jax.jit(JT.init_cache, static_argnums=(0, 1, 2))(
+        jcfg, batch, cache_len)
+
+
 def _jax_init(jcfg, seed):
     """The reference's params, built under ``jit`` as in
     ``test_torch_transformer.py`` (an eager call leaves JAX retracing
@@ -72,7 +81,7 @@ def test_serve_step_factory_matches_reference_and_checks_batch():
     shape = InputShape("decode_b2", 32, 2, "decode")
     step = make_serve_step(cfg, "cpu", shape)
     cache = T.init_cache(cfg, 2, 32, device="cpu")
-    jcache = JT.init_cache(jcfg, 2, 32)
+    jcache = _jax_cache(jcfg, 2, 32)
     tokens = np.array([[3], [11]], np.int32)
     for pos in range(4):
         want, jcache = JT.serve_step(jtree, jcfg, jcache,
@@ -97,7 +106,7 @@ def test_transformer_backend_matches_reference_token_stream():
     be = TransformerBackend(seq_len=16, device="cpu")
     be.params = params
     assert be.cfg == cfg and not be.has_labels
-    jcache = JT.init_cache(jcfg, 8, 16)
+    jcache = _jax_cache(jcfg, 8, 16)
     rng = np.random.default_rng(0)
     for pos in range(5):
         samples = rng.integers(0, 10 ** 6, size=8)

@@ -38,6 +38,15 @@ TOL = 1e-4
 SEQ = 128
 
 
+def _jax_cache(jcfg, batch, cache_len):
+    """The reference's decode cache, built under ``jit``: called eagerly,
+    its ``vmap`` over the blocks leaves JAX (0.9) retracing every later
+    eager ``jnp.ones``, which ``tests/test_contracts.py`` counts as
+    recompiles when it runs after this file in the same process."""
+    return jax.jit(JT.init_cache, static_argnums=(0, 1, 2))(
+        jcfg, batch, cache_len)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread for this module's many small CPU ops: as fast
@@ -139,7 +148,7 @@ def test_serve_steps_match_reference(name):
     jtree, tree = _jax_params(jcfg, seed=1)
     params = transformer_params_from_jax(cfg, tree, device="cpu")
     x = _inputs(cfg, 2, 8, seed=1)
-    jcache = JT.init_cache(jcfg, 2, 16)
+    jcache = _jax_cache(jcfg, 2, 16)
     cache = T.init_cache(cfg, 2, 16, device="cpu")
     for pos in range(8):
         want, jcache = JT.serve_step(jtree, jcfg, jcache,
@@ -192,9 +201,7 @@ def test_sliding_window_cache_is_bounded():
                             1, 4, 64, 64)
 
 
-@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b",
-                                  "qwen3-moe-235b-a22b",
-                                  "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("name", ["jamba-1.5-large-398b"])
 def test_later_blocks_raise_not_implemented(name):
     cfg = get_config(name).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -205,11 +212,14 @@ def test_later_blocks_raise_not_implemented(name):
 
 
 def _supported():
+    """Every registered config whose blocks the port builds (all but
+    jamba's Mamba): the converter's round trip covers the MLA and MoE
+    trees too (f32 router and ``kv_norm`` among the other leaves, the
+    nested shared expert, 3-D expert leaves stacked over the layers)."""
     out = []
     for name, cfg in REGISTRY.items():
         subs = T.block_template(cfg.reduced())
-        if all(s.mixer in ("gqa", "rwkv6") and s.ffn != "moe"
-               for s in subs):
+        if all(s.mixer in ("gqa", "mla", "rwkv6") for s in subs):
             out.append(name)
     return out
 
