@@ -61,9 +61,9 @@ class ModelConfig:
     # implementation strategy knobs (EXPERIMENTS.md §Perf iterates these)
     moe_grouped: bool = True       # per-sequence dispatch (data-sharded);
                                    # False: global-token dispatch (naive)
-    mamba_scan_chunk: int = 64     # chunked+vectorized ssm scan (cumprod/
-                                   # cumsum closed form); 0 = naive scan.
-                                   # <=64 keeps 1/cumprod(da) in f32 range.
+    mamba_scan_chunk: int = 64     # ssm scan in checkpointed chunks of
+                                   # this many steps; 0 = one per-step
+                                   # scan over the sequence
 
     # citation for the config values
     source: str = ""

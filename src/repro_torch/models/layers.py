@@ -5,13 +5,14 @@ non-parametric LN, RoPE (interleaved pairs), GQA attention (+qk-norm,
 sliding window) with its one-token decode over a ring-buffer cache, MLA
 (DeepSeek-V2's latent attention) with its decode over the latent cache,
 SwiGLU, the routed MoE FFN (grouped and flat dispatch) with its Switch
-aux loss, and the RWKV6 time / channel mix with their decode forms.
+aux loss, the Mamba block (depthwise causal conv, selective scan) with
+its one-token decode, and the RWKV6 time / channel mix with their
+decode forms.
 GQA's full-sequence attention runs through ``kernels/flash_attention``
 and the RWKV6 recurrence through ``kernels/wkv6``, whose gradients on
 the card come from their backward kernels (the ops' autograd Functions);
-MLA, the MoE FFN and the decode steps are plain torch, as they are plain
-jnp in the reference.  Mamba raises ``NotImplementedError`` until its
-slice.
+MLA, the MoE FFN, the Mamba block (its selective scan included) and the
+decode steps are plain torch, as they are plain jnp in the reference.
 
 Weights keep the reference's ``(din, dout)`` layout, so every projection
 is ``x @ W`` as in the reference, and the dtype casts follow the
@@ -24,13 +25,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import ops as fa
 from ..kernels.wkv6 import ops as wkv_ops
-
-_LATER = ("is not ported yet: it comes with the Mamba slice "
-          "(ROADMAP.md §1)")
 
 
 class Init:
@@ -304,25 +303,6 @@ def mla_decode(p, x, cache, pos: int, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Later slices ----------------------------------------------------------------
-# ---------------------------------------------------------------------------
-def mamba_init(cfg: ModelConfig, init: Init):
-    raise NotImplementedError(f"the Mamba block {_LATER}")
-
-
-def mamba_apply(p, x, cfg: ModelConfig):
-    raise NotImplementedError(f"the Mamba block {_LATER}")
-
-
-def mamba_init_cache(cfg: ModelConfig, batch: int, dtype, device):
-    raise NotImplementedError(f"the Mamba block {_LATER}")
-
-
-def mamba_decode(p, x, cache, cfg: ModelConfig):
-    raise NotImplementedError(f"the Mamba block {_LATER}")
-
-
-# ---------------------------------------------------------------------------
 # FFN -------------------------------------------------------------------------
 # ---------------------------------------------------------------------------
 def swiglu_init(cfg: ModelConfig, init: Init, d_ff: Optional[int] = None):
@@ -442,6 +422,148 @@ def moe_aux_loss(p, x, cfg: ModelConfig):
     top1 = probs.argmax(dim=-1)
     load = F.one_hot(top1, cfg.n_experts).to(torch.float32).mean(dim=0)
     return cfg.n_experts * torch.sum(importance * load)
+
+
+# ---------------------------------------------------------------------------
+# Mamba -----------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+def mamba_init(cfg: ModelConfig, init: Init):
+    d = cfg.d_model
+    di = cfg.expand * d
+    st, ck = cfg.d_state, cfg.d_conv
+    dt = param_dtype(cfg)
+    dt_rank = max(1, d // 16)
+    a_log = torch.log(torch.arange(1, st + 1, dtype=torch.float32,
+                                   device=init.device))
+    return {
+        "in_proj": init.normal((d, 2 * di), d, dt),
+        "conv_w": init.normal((ck, di), ck, torch.float32),
+        "conv_b": init.full((di,), 0.0),
+        "x_proj": init.normal((di, dt_rank + 2 * st), di, dt),
+        "dt_proj": init.normal((dt_rank, di), dt_rank, torch.float32),
+        "dt_bias": init.full((di,), -4.6),  # softplus^-1(0.01)
+        "a_log": a_log.repeat(di, 1),
+        "d_skip": init.full((di,), 1.0),
+        "out_proj": init.normal((di, d), di, dt),
+    }
+
+
+def _scan_steps(h, u, dt, b_t, c_t, a):
+    """The recurrence h <- exp(dt a) h + (dt u) b, y = h . c, one step at
+    a time over the leading (time) axis of u, dt: (T, B, di) and b_t,
+    c_t: (T, B, st), from the state h (B, di, st).  Returns (the last
+    state, y (T, B, di)).  Every factor is a single step's decay
+    exp(dt a) <= 1, so the result is right at any decay."""
+    da = torch.exp(dt[..., None] * a)                     # (T,B,di,st)
+    dbu = (dt * u)[..., None] * b_t[:, :, None, :]
+    hs = []
+    for da_t, dbu_t in zip(da.unbind(0), dbu.unbind(0)):
+        h = torch.addcmul(dbu_t, da_t, h)
+        hs.append(h)
+    ys = torch.einsum("tbdn,tbn->tbd", torch.stack(hs), c_t)
+    return h, ys
+
+
+def _mamba_ssm_scan(u, dt, b_t, c_t, a, chunk: int = 0):
+    """Selective-state-space scan, in f32.
+
+    u, dt: (B, S, di); b_t, c_t: (B, S, st); a: (di, st).  Returns
+    y (B, S, di).
+
+    ``chunk`` = 0 is one per-step scan over the sequence (the oracle).
+    ``chunk`` > 0 runs the same per-step recurrence chunk by chunk, each
+    chunk checkpointed while grad is on (the reference's
+    ``jax.checkpoint(chunk_body)``): backward keeps only the (B, di, st)
+    state at chunk boundaries and recomputes the steps inside.  Both
+    forms multiply by one step's decay at a time and never divide by a
+    product of decays, so they agree at any decay; the reference's
+    chunked form divides by a cumulative product and departs from its
+    own per-step form once decays are strong.  S <= chunk or S not a
+    multiple of it falls back to the per-step form, as the reference's.
+    """
+    b, s, di = u.shape
+    h = torch.zeros((b, di, a.shape[1]), dtype=torch.float32,
+                    device=u.device)
+    # time-major, as the reference's transposes
+    u, dt, b_t, c_t = (t.transpose(0, 1).contiguous()
+                       for t in (u, dt, b_t, c_t))
+    if not chunk or s <= chunk or s % chunk:
+        return _scan_steps(h, u, dt, b_t, c_t, a)[1].transpose(0, 1)
+    ys = []
+    for i in range(0, s, chunk):
+        part = (h, u[i:i + chunk], dt[i:i + chunk], b_t[i:i + chunk],
+                c_t[i:i + chunk], a)
+        if torch.is_grad_enabled():
+            h, y = checkpoint(_scan_steps, *part, use_reentrant=False)
+        else:
+            h, y = _scan_steps(*part)
+        ys.append(y)
+    return torch.cat(ys).transpose(0, 1)
+
+
+def _mamba_dt_bc(p, xi, x_dtype, st: int):
+    """dt = softplus(dt_proj(...) + dt_bias), B and C of the conv's output
+    ``xi`` (f32), as the reference: x_proj in the model's type, the rest
+    in f32."""
+    dt_rank = p["dt_proj"].shape[0]
+    proj = (xi.to(x_dtype) @ p["x_proj"]).to(torch.float32)
+    dt = F.softplus(proj[..., :dt_rank] @ p["dt_proj"] + p["dt_bias"])
+    return (dt, proj[..., dt_rank:dt_rank + st],
+            proj[..., dt_rank + st:])
+
+
+def mamba_apply(p, x, cfg: ModelConfig):
+    """The Mamba mixer over a full sequence (prefill), plain torch as in
+    the reference: in_proj, the depthwise causal conv over ``d_conv``
+    taps (f32), SiLU, the selective scan, the skip term, the SiLU(z)
+    gate, out_proj."""
+    _, s, d = x.shape
+    di = cfg.expand * d
+    xz = x @ p["in_proj"]
+    xi, z = xz[..., :di], xz[..., di:]
+    ck = p["conv_w"].shape[0]
+    xpad = F.pad(xi.to(torch.float32), (0, 0, ck - 1, 0))
+    conv = sum(xpad[:, i:i + s] * p["conv_w"][i] for i in range(ck))
+    xi = F.silu(conv + p["conv_b"])
+    dt, b_t, c_t = _mamba_dt_bc(p, xi, x.dtype, cfg.d_state)
+    a = -torch.exp(p["a_log"])
+    y = _mamba_ssm_scan(xi, dt, b_t, c_t, a, chunk=cfg.mamba_scan_chunk)
+    y = y + xi * p["d_skip"]
+    y = y * F.silu(z.to(torch.float32))
+    return y.to(x.dtype) @ p["out_proj"]
+
+
+def mamba_init_cache(cfg: ModelConfig, batch: int, dtype, device):
+    di = cfg.expand * cfg.d_model
+    return {
+        "h": torch.zeros((batch, di, cfg.d_state), dtype=torch.float32,
+                         device=device),
+        "conv": torch.zeros((batch, cfg.d_conv - 1, di), dtype=dtype,
+                            device=device),
+    }
+
+
+def mamba_decode(p, x, cache, cfg: ModelConfig):
+    """One-token decode. x: (B, 1, D); cache h: (B, di, st) f32, conv:
+    (B, d_conv - 1, di), the last inputs of the conv.  Returns
+    (out (B, 1, D), new cache)."""
+    di = cfg.expand * cfg.d_model
+    xz = x[:, 0] @ p["in_proj"]
+    xi, z = xz[..., :di], xz[..., di:]
+    hist = torch.cat([cache["conv"].to(torch.float32),
+                      xi.to(torch.float32)[:, None]], dim=1)
+    conv = torch.einsum("bkd,kd->bd", hist, p["conv_w"])
+    xi_c = F.silu(conv + p["conv_b"])
+    dt, b_t, c_t = _mamba_dt_bc(p, xi_c, x.dtype, cfg.d_state)
+    a = -torch.exp(p["a_log"])
+    h = torch.addcmul((dt * xi_c)[..., None] * b_t[:, None, :],
+                      torch.exp(dt[..., None] * a), cache["h"])
+    y = torch.einsum("bdn,bn->bd", h, c_t)
+    y = y + xi_c * p["d_skip"]
+    y = y * F.silu(z.to(torch.float32))
+    out = y.to(x.dtype) @ p["out_proj"]
+    return out[:, None], {"h": h,
+                          "conv": hist[:, 1:].to(cache["conv"].dtype)}
 
 
 # ---------------------------------------------------------------------------

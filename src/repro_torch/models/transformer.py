@@ -8,9 +8,9 @@ cross-entropy, ``loss_fn`` and ``make_train_step``, the decode cache and
 leading layer axis and scans over it; here ``params["blocks"]`` is a list
 with one dict per block, and the layer loop is a Python loop.  Gradients
 come from autograd; on the card, attention's and the RWKV6 recurrence's
-from their backward kernels.  MLA and the MoE FFN (with its Switch aux
-loss, summed over the blocks) are plain torch, as in the reference;
-Mamba blocks raise ``NotImplementedError`` until their slice.
+from their backward kernels.  MLA, the MoE FFN (with its Switch aux
+loss, summed over the blocks) and the Mamba block are plain torch, as in
+the reference.
 """
 from __future__ import annotations
 

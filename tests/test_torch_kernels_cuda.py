@@ -192,12 +192,13 @@ def test_fedavg_agg_fullest_table(cuda_device):
 # ---------------------------------------------------------------------------
 # the reference's sweep (tests/test_kernels.py), llama3.2-3b's head dim
 # (also over 32 KV tiles, as in its prefill), a ragged sequence length
-# that no 64-row tile divides, and qwen3-moe's GQA group of 16 at head
-# dim 128 (64 query heads over 4 KV heads there)
+# that no 64-row tile divides, qwen3-moe's GQA group of 16 at head dim
+# 128 (64 query heads over 4 KV heads there) and jamba's group of 8 (64
+# over 8)
 FLASH_SHAPES = [(1, 2, 2, 128, 32), (2, 4, 2, 256, 64), (1, 8, 1, 128, 64),
                 (2, 4, 4, 512, 16), (1, 6, 2, 256, 128),
                 (1, 4, 2, 2048, 128), (2, 4, 2, 200, 64),
-                (1, 16, 1, 256, 128)]
+                (1, 16, 1, 256, 128), (1, 8, 1, 256, 128)]
 # bf16: kernel and plain version both sum in f32 from the same bf16
 # inputs and round the output once; the kernel (on the tensor cores) also
 # rounds the probabilities to bf16 before P.V, as FA2/FA3 do.  They differ
@@ -592,7 +593,7 @@ def test_flash_attention_backward_variant(cuda_device, dtype, variant):
 @pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
     (1, 4, 2, 200, 64, True, None), (2, 4, 4, 65, 16, True, 64),
     (1, 6, 2, 129, 32, False, None), (1, 24, 8, 2048, 128, True, None),
-    (1, 16, 1, 256, 128, True, None)])
+    (1, 16, 1, 256, 128, True, None), (1, 8, 1, 256, 128, True, None)])
 def test_flash_attention_forward_lse(cuda_device, dtype, b, hq, hkv, s, d,
                                      causal, window):
     """The forward with the log-sum-exp buffer gives the same output, bit

@@ -201,30 +201,11 @@ def test_sliding_window_cache_is_bounded():
                             1, 4, 64, 64)
 
 
-@pytest.mark.parametrize("name", ["jamba-1.5-large-398b"])
-def test_later_blocks_raise_not_implemented(name):
-    cfg = get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(cfg, device="meta")
-    if cfg.attention == "mla" or cfg.attn_every:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.init_cache(cfg, 1, 8, device="cpu")
-
-
-def _supported():
-    """Every registered config whose blocks the port builds (all but
-    jamba's Mamba): the converter's round trip covers the MLA and MoE
-    trees too (f32 router and ``kv_norm`` among the other leaves, the
-    nested shared expert, 3-D expert leaves stacked over the layers)."""
-    out = []
-    for name, cfg in REGISTRY.items():
-        subs = T.block_template(cfg.reduced())
-        if all(s.mixer in ("gqa", "mla", "rwkv6") for s in subs):
-            out.append(name)
-    return out
-
-
-@pytest.mark.parametrize("name", _supported())
+# every registered config: the round trip covers the MLA, MoE and Mamba
+# trees too (f32 router, ``kv_norm`` and Mamba's f32 leaves among the
+# others, the nested shared expert, 3-D expert leaves stacked over the
+# layers)
+@pytest.mark.parametrize("name", list(REGISTRY))
 def test_converter_round_trip(name):
     jcfg, cfg = _cfgs(name)
     _, tree = _jax_params(jcfg, seed=4)
