@@ -18,6 +18,16 @@ Phases, each printed as one JSON object on its own line:
    nodes, H=5, batched on the card), with every kernel's launch count
    set to 0 just before and read just after: one ``fedavg_agg`` launch a
    round, every leaf of both size buckets.
+2a. ``contracts``: the runtime contracts (``repro_torch.analysis.
+   contracts``) on the card: ``FLConfig(guard_recompiles=True,
+   execution="batched")`` at that setup for 4 rounds, every warm round
+   under ``no_recompile`` with count 0 and enforced, one ``fedavg_agg``
+   launch a round, params bit for bit equal to the same run unguarded;
+   cold blocks (``fedavg_agg.cu`` built into a fresh build root, a
+   ``torch.compile`` function at a new shape) raise with their labels;
+   ``assert_donated`` over a 2-layer llama3.2-3b train step in place
+   (passes) and out of place (raises); ``nan_tripwire`` names the op or
+   the kernel (``flash_attention``, ``fedavg_agg``) of an injected NaN.
 3. ``round_profile``: one steady round of that setup under
    ``torch.profiler``: the card's busy share and kernel time by name.
 4. ``kernel``: the round aggregate as the main path issues it (every
@@ -180,9 +190,18 @@ Phases, each printed as one JSON object on its own line:
     bytes plus its two boundary buffers; scan: its f32 FLOPs), and bf16
     cases at T = 1, T = 63 and D = 16, 32.
 
+22. ``roofline``: every prefill and train step whose wall phases 13-19b
+    measured, counted on the ``meta`` device by
+    ``repro_torch.launch.dryrun.run_one`` at the same config, depth and
+    shape: FLOPs, bytes, the bound (the larger of the compute and memory
+    terms on the card's rates, ``repro_torch.launch.mesh``), the wall,
+    ``bound / wall`` and ``model_flops / (wall x peak)`` (each at most
+    ``ROOFLINE_SHARE_LIMIT``), and the host seconds of each count, one
+    line a step with the card's name and power limit.
+
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after; ``fedavg_agg``'s count in the kernel
-line sums its paths (phases 2, 8, 9, 11, 12, 20, 20a and 20b), the
+line sums its paths (phases 2, 2a, 8, 9, 11, 12, 20, 20a and 20b), the
 attention and wkv counts theirs (prefill, training, the FL steps).  Then a
 ``{"kernels": [...]}`` line and, last, the device line.  Any failed phase, a missing CUDA
 device, or a directory without the rest of the repository gives a
@@ -206,11 +225,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM (NVIDIA data sheet): HBM3 bandwidth and the peak rates of the
-# operations these kernels do, by input type (float32 outside the tensor
-# cores, bf16 dense)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 TOLERANCE = {"float32": 1e-6, "bfloat16": 2e-2}
 # f32: the reference's tolerances (tests/test_kernels.py).  bf16: kernel
 # and plain version both sum in f32 from the same bf16 inputs and round
@@ -227,10 +241,34 @@ FLASH_TOLERANCE = {"float32": 2e-5, "bfloat16": 1e-2}
 # put ~2**-9 of the state's size (not the output's) on every output and
 # miss the limit where outputs are small
 WKV_TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
+# The prefill and train steps whose walls the phases measure, for the
+# roofline phase: {"config", "kind", "batch", "seq_len", "wall_s"}
+MEASURED_STEPS = []
+# A roofline share above this fails the roofline phase: the count or the
+# wall would be wrong (the bound is the least time the card could take)
+ROOFLINE_SHARE_LIMIT = 1.05
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def _rates():
+    """The card's HBM rate (bytes/s) and the peak rates of the operations
+    these kernels do by input type (float32 outside the tensor cores, bf16
+    dense): one source, ``repro_torch.launch.mesh`` (NVIDIA's data sheet
+    of the H100 SXM)."""
+    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
+                                         PEAK_FLOPS_F32)
+    return HBM_BW, {"float32": PEAK_FLOPS_F32, "bfloat16": PEAK_FLOPS_BF16}
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def _event_ms(run, repeats: int) -> float:
@@ -296,10 +334,7 @@ def phase_card(kernels):
     backward."""
     import torch
     from repro_torch.kernels.build import compile_library
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi, flush=True)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
@@ -403,6 +438,191 @@ def phase_main_path(launchers):
     return launches, split
 
 
+CONTRACT_ROUNDS = 4
+
+
+def _violation(run):
+    """``run()``'s ``ContractViolation`` message, or None if it passed."""
+    from repro_torch.analysis.contracts import ContractViolation
+    try:
+        run()
+    except ContractViolation as exc:
+        return str(exc)
+    return None
+
+
+def _cold(label, run):
+    """``run()`` under ``no_recompile(label=label)``."""
+    import torch
+    from repro_torch.analysis import contracts
+    with contracts.no_recompile(label=label):
+        run()
+        torch.cuda.synchronize()
+
+
+def _guarded_fl(cfg):
+    """``RegionTrainer(cfg)`` stepped ``cfg.n_rounds`` rounds, every
+    ``no_recompile`` block the cohort engine opens recorded as (round,
+    label, count, enforced).  Returns the records and the final params."""
+    import contextlib
+    from repro_torch.fl import cohort_engine
+    from repro_torch.fl.rounds import RegionTrainer
+    from repro_torch.tree import tree_leaves
+    seen = []
+    real = cohort_engine.contracts.no_recompile
+    rnd = [0]
+
+    @contextlib.contextmanager
+    def watched(*args, **kw):
+        with real(*args, **kw) as rc:
+            yield rc
+        seen.append((rnd[0], kw.get("label"), rc.count, rc.enforced))
+
+    cohort_engine.contracts.no_recompile = watched
+    try:
+        trainer = RegionTrainer(cfg)
+        for rnd[0] in range(cfg.n_rounds):
+            trainer.step(rnd[0])
+    finally:
+        cohort_engine.contracts.no_recompile = real
+    return seen, tree_leaves(trainer.params)
+
+
+def phase_contracts(launchers, agg_kernel, tmp):
+    """The runtime contracts on the card (``repro_torch.analysis.
+    contracts``).  ``FLConfig(guard_recompiles=True, execution="batched")``
+    at the paper setup, ``CONTRACT_ROUNDS`` rounds: every warm round runs
+    under ``no_recompile`` with count 0 and the contract enforced, one
+    ``fedavg_agg`` launch a round, and the params equal, bit for bit, to
+    the same run unguarded (deterministic algorithms on for both).  Cold
+    blocks raise with their labels: ``fedavg_agg.cu`` built into a fresh
+    build root, a ``torch.compile`` function at a new shape.
+    ``assert_donated`` passes over a 2-layer llama3.2-3b train step that
+    updates in place and raises over one that does not; ``nan_tripwire``
+    names the op (``aten.log``) or the kernel (``flash_attention``,
+    ``fedavg_agg``) that made an injected NaN.  Returns the launches."""
+    import dataclasses
+    import torch
+    from repro_torch.analysis import contracts
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.fl import FLConfig
+    from repro_torch.kernels.build import compile_library
+    from repro_torch.kernels.fedavg_agg import ops as agg_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.train import make_sharded_train_step
+    from repro_torch.models import transformer as T
+    cfg = FLConfig(n_rounds=CONTRACT_ROUNDS, guard_recompiles=True,
+                   execution="batched")
+    b = torch.backends.cudnn
+    saved = (b.deterministic, b.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    b.deterministic, b.benchmark = True, False
+    try:
+        set_counts(launchers)
+        t0 = time.perf_counter()
+        guarded, params = _guarded_fl(cfg)
+        torch.cuda.synchronize()
+        guarded_s = time.perf_counter() - t0
+        off, plain = _guarded_fl(dataclasses.replace(cfg,
+                                                     guard_recompiles=False))
+        counts = read_counts(launchers)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        b.deterministic, b.benchmark = saved
+    bit_identical = (len(params) == len(plain) and all(
+        torch.equal(x, y) for x, y in zip(params, plain)))
+    warm_clean = bool(guarded) and all(
+        (label, n, enforced) == ("CohortEngine.round", 0, True)
+        for _, label, n, enforced in guarded)
+    # cold blocks: a library built into a fresh root, a new compiled graph
+    cold_build = _violation(lambda: _cold(
+        "contracts.cold_build",
+        lambda: compile_library(agg_kernel.SOURCE,
+                                root=Path(tmp) / "cold_build")))
+    doubled = torch.compile(lambda x: x * 2, backend="eager")
+    doubled(torch.ones(3, device="cuda"))
+    with contracts.no_recompile() as warm:
+        doubled(torch.ones(3, device="cuda"))
+    warm_compile = warm.count     # the view counts on after the block
+    cold_compile = _violation(lambda: _cold(
+        "contracts.cold_compile",
+        lambda: doubled(torch.ones(17, device="cuda"))))
+    # assert_donated over the port's in-place train step, and one that
+    # writes new params instead
+    llama = _config("llama3.2-3b", 2)
+    shape = InputShape("contracts", 2048, 1, "train")
+    weights = T.init_params(llama, seed=0, device="cuda")
+    data = _train_batch(llama, (1,), 2048)
+    in_place = make_sharded_train_step(llama, shape,
+                                       lr=TRAIN_LR["llama3.2-3b"])
+    out_of_place = make_sharded_train_step(llama, shape,
+                                           lr=TRAIN_LR["llama3.2-3b"],
+                                           donate=False)
+
+    def donated(step, label):
+        def run():
+            with contracts.assert_donated(weights, label=label):
+                step(weights, data)
+            torch.cuda.synchronize()
+        return run
+    donated_ok = _violation(donated(in_place, "llama3.2-3b in place"))
+    not_donated = _violation(donated(out_of_place,
+                                     "llama3.2-3b out of place"))
+    del weights, data
+    _free()
+    # nan_tripwire: an op, and two kernels written behind the dispatcher
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((1, 4, 128, 64), generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    q[0, 0, 5, 3] = float("nan")
+    stacked = torch.randn((4, 1000), generator=gen, device="cuda")
+    stacked[2, 17] = float("nan")
+    weights4 = torch.full((4,), 0.25, device="cuda")
+
+    def tripped(run):
+        def armed():
+            with torch.no_grad(), contracts.nan_tripwire():
+                run()
+                torch.cuda.synchronize()
+        return armed
+    trips = {
+        "aten.log": _violation(tripped(
+            lambda: torch.log(torch.zeros(4, device="cuda") - 1.0))),
+        "kernel flash_attention": _violation(tripped(
+            lambda: fa_ops.attention(q, k, v))),
+        "kernel fedavg_agg": _violation(tripped(
+            lambda: agg_ops.weighted_aggregate(stacked, weights4))),
+    }
+    restored = not torch.is_anomaly_enabled()
+    ok = (warm_clean and off == [] and bit_identical
+          and counts["fedavg_agg"] == 2 * CONTRACT_ROUNDS
+          and cold_build is not None and "contracts.cold_build" in cold_build
+          and cold_compile is not None
+          and "contracts.cold_compile" in cold_compile
+          and warm_compile == 0 and donated_ok is None
+          and not_donated is not None and "still live" in not_donated
+          and all(m is not None and want in m for want, m in trips.items())
+          and restored)
+    emit({"phase": "contracts", "ok": ok,
+          "config": f"FLConfig(n_rounds={CONTRACT_ROUNDS}, "
+                    f"guard_recompiles=True, execution='batched')",
+          "guarded_rounds": [{"round": r, "label": label, "count": n,
+                              "enforced": enforced}
+                             for r, label, n, enforced in guarded],
+          "guarded_run_s": guarded_s, "unguarded_blocks": len(off),
+          "bit_identical_to_unguarded": bit_identical, "launches": counts,
+          "cold_build": cold_build, "cold_compile": cold_compile,
+          "warm_compile_count": warm_compile,
+          "donated_in_place": donated_ok, "donated_out_of_place": not_donated,
+          "nan_tripwire": trips, "anomaly_mode_restored": restored})
+    if not ok:
+        raise RuntimeError("contracts: a warm round built a program, the "
+                           "guarded run's params differ from the "
+                           "unguarded run's, a cold block passed, or a "
+                           "donation or tripwire check went wrong")
+    return counts["fedavg_agg"]
+
+
 def phase_round_profile():
     """One steady round of the main path under ``torch.profiler``: the
     card's busy share of the round's wall time and its kernel time by
@@ -422,8 +642,9 @@ def phase_round_profile():
 def _bound(nbytes, ops, dtype_name):
     """The least time the card could take: bytes over the memory rate or
     operations over the peak rate of ``dtype_name``, the larger."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    hbm, peak = _rates()
+    bytes_ms = nbytes / hbm * 1e3
+    ops_ms = ops / peak[dtype_name] * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "ops": ops}
@@ -1286,6 +1507,8 @@ def _prefill_run(launchers, cfg, batch, seq, needle):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = read_counts(launchers)
+    MEASURED_STEPS.append({"config": cfg, "kind": "prefill", "batch": batch,
+                           "seq_len": seq, "wall_s": wall_s})
     peak = torch.cuda.max_memory_allocated() / 2**30
     finite = bool(torch.isfinite(logits).all())
     shape_ok = tuple(logits.shape) == (batch, cfg.padded_vocab)
@@ -2142,7 +2365,7 @@ def _flash_backward_case(fa_kernel, fa_ref, q_shape, hkv, window,
     bound = _bound(nbytes, ops, dtype_name)
     # the design's own floor: nine products (S and dP in both kernels,
     # dV's and dK's over bf16 high and low parts)
-    floor_ms = 1.8 * ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    floor_ms = 1.8 * ops / _rates()[1][dtype_name] * 1e3
     want_variant = FLASH_BACKWARD_VARIANT[dtype_name]
     right_variant = variants == {
         name: int(name == want_variant) for name in variants}
@@ -2263,13 +2486,13 @@ def _wkv_backward_case(wkv_kernel, wkv_ref, shape, dtype_name, seed, w_lo):
     # hi/lo splits included).  Scan: its 22 D^2 f32 FLOP a step
     want_variant = _wkv_backward_variant(dtype_name, d)
     n = -(-t // 64)
+    hbm, peak = _rates()
     if want_variant == "tensor_cores":
         floor_ms = 1e3 * max(
-            (nbytes + 4 * b * h * n * d * d * 4) / HBM_BYTES_PER_S,
-            (1792 * d * d + 6144 * d) * b * h * n
-            / PEAK_OPS_PER_S["bfloat16"])
+            (nbytes + 4 * b * h * n * d * d * 4) / hbm,
+            (1792 * d * d + 6144 * d) * b * h * n / peak["bfloat16"])
     else:
-        floor_ms = 1e3 * 22 * d * d * t * b * h / PEAK_OPS_PER_S["float32"]
+        floor_ms = 1e3 * 22 * d * d * t * b * h / peak["float32"]
     right_variant = variants == {
         name: int(name == want_variant) for name in variants}
     rec = {"shape": list(shape), "dtype": dtype_name, "w_lo": w_lo,
@@ -2503,6 +2726,9 @@ def _train_phase(launchers, phase, name, kernels, batch=4, seq=2048,
         walls.append(time.perf_counter() - t0)
         aux.append(float(metrics["aux"]))
     counts = read_counts(launchers)
+    MEASURED_STEPS.append({"config": cfg, "kind": "train", "batch": batch,
+                           "seq_len": seq,
+                           "wall_s": statistics.median(walls[1:])})
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_params = sum(t.numel() for t in tree_leaves(params))
     prof_wall, by_name = _profile(lambda: step(params, data))
@@ -2709,6 +2935,54 @@ def phase_fl_train_step(launchers, agg_ref, name="llama3.2-3b",
     return counts
 
 
+def phase_roofline():
+    """Every prefill and train step whose wall a phase measured
+    (``MEASURED_STEPS``), counted by ``repro_torch.launch.dryrun.run_one``
+    on the ``meta`` device at the same config, depth and shape: FLOPs and
+    bytes as dispatched (the kernels as their plain versions' work), the
+    bound (the larger of the compute and memory terms), the measured wall,
+    ``bound / wall`` and ``model_flops / (wall x peak)``, and the host
+    seconds of the count.  A share above ``ROOFLINE_SHARE_LIMIT`` fails:
+    the count or the wall would be wrong."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+    smi = nvidia_smi()
+    rows = []
+    for m in MEASURED_STEPS:
+        cfg = m["config"]
+        rec = dryrun.run_one(cfg, InputShape(f"{m['kind']}_smoke",
+                                             m["seq_len"], m["batch"],
+                                             m["kind"]))
+        roof = rec["roofline"]
+        wall = m["wall_s"]
+        row = {"config": cfg.name, "kind": m["kind"], "n_layers":
+               cfg.n_layers, "n_experts": cfg.n_experts,
+               "batch": m["batch"], "seq_len": m["seq_len"],
+               "dtype": cfg.param_dtype, "flops": rec["flops_per_dev"],
+               "library_flops": rec["library_cost_flops_per_dev"],
+               "bytes": rec["bytes_per_dev"],
+               "t_compute_s": roof["t_compute_s"],
+               "t_memory_s": roof["t_memory_s"], "bound_s": roof["bound_s"],
+               "dominant": roof["dominant"], "wall_s": wall,
+               "bound_over_wall": roof["bound_s"] / wall,
+               "model_flops": roof["model_flops"],
+               "model_flops_share": roof["model_flops"]
+               / (wall * roof["peak_flops"]),
+               "count_host_s": rec["count_s"]}
+        row["ok"] = (rec["status"] == "ok"
+                     and row["bound_over_wall"] <= ROOFLINE_SHARE_LIMIT
+                     and row["model_flops_share"] <= ROOFLINE_SHARE_LIMIT)
+        emit({"phase": "roofline_step", "card": smi, **row})
+        rows.append(row)
+    ok = len(rows) == len(MEASURED_STEPS) > 0 and all(r["ok"] for r in rows)
+    emit({"phase": "roofline", "ok": ok, "card": smi, "steps": len(rows),
+          "limit": ROOFLINE_SHARE_LIMIT,
+          "count_host_s": sum(r["count_host_s"] for r in rows)})
+    if not ok:
+        raise RuntimeError(f"roofline: a step's bound / wall or model "
+                           f"FLOPs share is above {ROOFLINE_SHARE_LIMIT}")
+
+
 def _kernel_line(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2754,6 +3028,8 @@ def main() -> int:
                     (wkv_kernel.SOURCE, wkv_kernel.build),
                     (wkv_kernel.SOURCE_BWD, wkv_kernel.build_backward)])
         launches, split = phase_main_path(launchers)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            launches += phase_contracts(launchers, agg_kernel, tmp)
         phase_round_profile()
         summary = phase_kernel(agg_kernel, agg_ref, split)
         phase_card_vs_cpu(agg_kernel)
@@ -2809,6 +3085,7 @@ def main() -> int:
                                                   hybrid_shapes)
         wkv_bwd_case = phase_wkv_backward_kernel(wkv_kernel, wkv_ref,
                                                  rwkv_train_shape)
+        phase_roofline()
     except Exception:  # report the failed phase, then fail the run
         traceback.print_exc()
         emit({"phase": "failed", "error": traceback.format_exc(limit=3)})

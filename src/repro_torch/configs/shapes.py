@@ -5,15 +5,19 @@
   decode_32k   seq=32768   global_batch=128   (decode)        -> serve_step
   long_500k    seq=524288  global_batch=1     (long decode)   -> serve_step
 
-A copy of the reference's ``configs/shapes.py`` without its
-``ShapeDtypeStruct`` specs, which serve the dry-run only.  long_500k
-requires a sub-quadratic attention path (SSM / hybrid / MLA latent cache
-/ sliding window) — ``supports()`` encodes the policy.
+The counterpart of the reference's ``configs/shapes.py``: its
+``ShapeDtypeStruct`` stand-ins become tensors on the ``meta`` device
+(shapes and dtypes, no storage), which the dry-run (``launch/dryrun.py``)
+feeds to the port's steps.  long_500k requires a sub-quadratic attention
+path (SSM / hybrid / MLA latent cache / sliding window) — ``supports()``
+encodes the policy.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
+
+import torch
 
 from .base import ModelConfig
 
@@ -39,3 +43,35 @@ def supports(cfg: ModelConfig, shape: InputShape) -> bool:
     if shape.name == "long_500k":
         return cfg.is_subquadratic
     return True
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape,
+                batch_override: Optional[int] = None,
+                device="meta") -> Dict[str, torch.Tensor]:
+    """Stand-ins for every model input, with the reference's shapes and
+    dtypes: ``meta`` tensors (no allocation), or zeros on ``device``
+    (token 0 is a valid token)."""
+    b = batch_override or shape.global_batch
+    s = shape.seq_len if shape.kind in ("train", "prefill") else 1
+    f = getattr(torch, cfg.param_dtype)
+
+    def zeros(dims, dtype):
+        return torch.zeros(dims, dtype=dtype, device=device)
+
+    # decode: ONE new token; the cache spec is created separately
+    if cfg.input_mode == "tokens":
+        out = {"inputs": zeros((b, s), torch.int32)}
+    else:
+        out = {"inputs": zeros((b, s, cfg.d_model), f)}
+    if shape.kind == "train":
+        out["labels"] = zeros((b, s), torch.int32)
+    return out
+
+
+def cache_specs(cfg: ModelConfig, shape: InputShape,
+                batch_override: Optional[int] = None, device="meta"):
+    """The decode cache of ``transformer.init_cache`` for ``shape``, on
+    ``device`` (``meta``: shapes and dtypes only)."""
+    from ..models import transformer as T
+    b = batch_override or shape.global_batch
+    return T.init_cache(cfg, b, shape.seq_len, device=device)

@@ -23,8 +23,12 @@ aggregate.  In place of donation, the local update overwrites its own
 client stack from the second SGD step on (``cohort_local_update``); the
 global params are never written in place, so a caller may keep them.
 
-The mesh-sharded path and the ``no_recompile`` guard wait for the
-multi-GPU slice and the tooling slice (ROADMAP).
+With ``guard=True`` every warm round (each of its bucket signatures
+seen before) runs under
+:func:`repro_torch.analysis.contracts.no_recompile`: a kernel library
+built or loaded, or a ``torch.compile`` graph, on the warm path raises
+``ContractViolation`` instead of passing unseen.  The mesh-sharded path
+waits for the multi-GPU slice (ROADMAP).
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..analysis import contracts
 from ..data.pipeline import BucketedCohort, build_bucketed_cohort
 from ..device import resolve_device
 from ..tree import tree_leaves
@@ -72,12 +77,13 @@ class CohortEngine:
 
     One engine instance per FL job (``RegionTrainer`` owns one); the
     instance carries the signature bookkeeping and counters across
-    rounds.
+    rounds, and with ``guard`` holds every warm round to
+    ``no_recompile``.
     """
 
     def __init__(self, apply_fn: Callable, batch_align: int = 32,
                  client_align: int = 4, device="cuda", tracer=None,
-                 sharding: str = "auto"):
+                 sharding: str = "auto", guard: bool = False):
         from ..obs import NULL_TRACER
         if sharding not in SHARDING_MODES:
             raise ValueError(
@@ -90,6 +96,7 @@ class CohortEngine:
         self.batch_align = max(1, int(batch_align))
         self.client_align = max(1, int(client_align))
         self.sharding = sharding
+        self.guard = bool(guard)
         self.signatures: set = set()
         self.round_signatures: set = set()
         self.stats = CohortEngineStats()
@@ -140,15 +147,19 @@ class CohortEngine:
         over the survivors; the drop count lands in
         :attr:`last_quarantined`).  A round whose every update was
         dropped keeps the previous global model.
+
+        With ``self.guard``, a round whose every bucket signature is
+        already in :attr:`signatures` runs under
+        ``contracts.no_recompile(label="CohortEngine.round")``.
         """
         tr = self.tracer
         self.last_quarantined = 0
+        # new layouts = bucket shapes not seen before (the reference
+        # counts these as recompiles; the name is kept for its report)
+        fresh = sum(1 for cb in cohort.buckets
+                    if self._bucket_signature(cb) not in self.signatures)
+        warm = self.guard and not fresh
         if tr.enabled:
-            # new layouts = bucket shapes not seen before (the reference
-            # counts these as recompiles; the name is kept for its report)
-            fresh = sum(1 for cb in cohort.buckets
-                        if self._bucket_signature(cb)
-                        not in self.signatures)
             m = tr.metrics
             m.counter("cohort.recompiled_signatures").inc(fresh)
             m.counter("cohort.bucket_dispatches").inc(len(cohort.buckets))
@@ -158,6 +169,10 @@ class CohortEngine:
         if tr.enabled:
             tr.metrics.gauge("cohort.padding_ratio").set(
                 self.stats.padding_ratio)
+        if warm:
+            with contracts.no_recompile(label="CohortEngine.round"):
+                return self._execute(params, cohort, lr, total,
+                                     corrupt=corrupt, quarantine=quarantine)
         return self._execute(params, cohort, lr, total, corrupt=corrupt,
                              quarantine=quarantine)
 

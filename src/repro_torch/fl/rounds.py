@@ -49,9 +49,11 @@ Fault injection (``repro_torch.resilience``): a trainer with an attached
 latency, warm-restarts after a trainer crash, and quarantines non-finite
 client updates before the aggregate.
 
-Not yet ported (ROADMAP): the ``no_recompile`` guard (tooling) and the
-sharded cohort path (multi-GPU).  Their ``FLConfig`` fields keep their
-names but accept only the value the port supports.
+``guard_recompiles=True`` runs every warm round of the cohort engine
+under ``analysis.contracts.no_recompile`` (``CohortEngine(guard=True)``).
+Not yet ported (ROADMAP): the sharded cohort path (multi-GPU); its
+``FLConfig`` field keeps its name but accepts only the values the port
+supports.
 """
 from __future__ import annotations
 
@@ -103,7 +105,7 @@ class FLConfig:
     cohort_batch_align: int = 32   # batched mode: bucket-width grid unit
     cohort_bucketing: str = "geometric"  # geometric|global (module docstring)
     cohort_client_align: int = 4   # batched mode: bucket client-count grid
-    guard_recompiles: bool = False  # only False until the tooling slice
+    guard_recompiles: bool = False  # warm cohort rounds under no_recompile
     cohort_sharding: str = "auto"  # auto|off: one device until multi-GPU
     # Cross-region federation override for SAGINEngine FL mode: a
     # FederationConfig replaces the scenario's wholesale; a bare policy
@@ -129,8 +131,6 @@ class FLConfig:
 
     def __post_init__(self):
         waits = [
-            ("guard_recompiles", self.guard_recompiles, (False,),
-             "the tooling slice"),
             ("cohort_sharding", self.cohort_sharding, ("auto", "off"),
              "the multi-GPU slice"),
         ]
@@ -436,7 +436,8 @@ class RegionTrainer:
             self.cohort_engine = CohortEngine(
                 self.apply_fn, batch_align=cfg.cohort_batch_align,
                 client_align=cfg.cohort_client_align, device=self.device,
-                tracer=self.tracer, sharding=cfg.cohort_sharding)
+                tracer=self.tracer, sharding=cfg.cohort_sharding,
+                guard=cfg.guard_recompiles)
 
         self.result = FLResult(cfg, [], [], [], [], [], [])
         eval_idx = self.rng.choice(len(self.ds.x_test),

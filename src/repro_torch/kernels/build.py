@@ -7,6 +7,10 @@ the first time it is needed, then loaded with ``ctypes``.  The hash
 covers every file in the source's directory (the ``.cu`` and the headers
 it includes) and the flags, so an edited kernel or header is rebuilt and
 an unchanged one is reused.  A failed build raises with nvcc's output.
+
+:func:`programs_built` counts the programs this process has made: each
+run of nvcc and each first load of a library.
+``analysis.contracts.no_recompile`` reads it.
 """
 from __future__ import annotations
 
@@ -18,12 +22,27 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Optional
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
+
+_programs = 0
+
+
+def programs_built() -> int:
+    """How many times, in this process, nvcc compiled a library
+    (:func:`compile_library`) or a library was loaded for the first time
+    (a miss of :func:`load_library`'s cache)."""
+    return _programs
+
+
+def _count_program() -> None:
+    global _programs
+    _programs += 1
 
 
 def _nvcc() -> str:
@@ -40,7 +59,7 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(source: Path) -> Path:
+def library_path(source: Path, root: Optional[Path] = None) -> Path:
     """Where ``source`` builds to: keyed on the name and bytes of every
     file in its directory, the source's name and the flags."""
     digest = hashlib.sha256(f"{source.name}\0{' '.join(NVCC_FLAGS)}\0"
@@ -49,18 +68,20 @@ def library_path(source: Path) -> Path:
         if path.is_file():
             digest.update(f"{path.name}\0{path.stat().st_size}\0".encode())
             digest.update(path.read_bytes())
-    return BUILD_ROOT / digest.hexdigest()[:16] / f"lib{source.stem}.so"
+    return (root or BUILD_ROOT) / digest.hexdigest()[:16] / \
+        f"lib{source.stem}.so"
 
 
-def compile_library(source: Path) -> Path:
-    """Compile ``source`` unless its library exists; returns the library.
+def compile_library(source: Path, root: Optional[Path] = None) -> Path:
+    """Compile ``source`` unless its library exists under ``root``
+    (default :data:`BUILD_ROOT`); returns the library.
 
     The library is written under a temporary name and renamed into place,
     so processes that build the same source at once never load a
     half-written file.  nvcc's report (registers, shared memory, spills)
     is kept beside it as ``build.log``.
     """
-    lib = library_path(source)
+    lib = library_path(source, root)
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
@@ -69,6 +90,7 @@ def compile_library(source: Path) -> Path:
     try:
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
                               capture_output=True, text=True)
+        _count_program()
         (lib.parent / "build.log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source} "
@@ -84,4 +106,6 @@ def compile_library(source: Path) -> Path:
 @functools.lru_cache(maxsize=None)
 def load_library(source: Path) -> ctypes.CDLL:
     """Build (at first use) and load ``source``'s shared library."""
-    return ctypes.CDLL(str(compile_library(source)))
+    lib = ctypes.CDLL(str(compile_library(source)))
+    _count_program()
+    return lib

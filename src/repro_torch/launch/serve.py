@@ -1,7 +1,7 @@
 """Serve-step factory: one-token decode with a KV / state cache.
 
-The counterpart of the reference's ``launch/serve.py::make_serve_step``
-on one device: no mesh and no shardings.
+The counterpart of the reference's ``launch/serve.py`` on one device
+(``abstract_cache``, ``make_serve_step``): no mesh and no shardings.
 """
 from __future__ import annotations
 
@@ -11,6 +11,13 @@ from ..configs.base import ModelConfig
 from ..configs.shapes import InputShape
 from ..device import resolve_device
 from ..models import transformer as T
+
+
+def abstract_cache(cfg: ModelConfig, shape: InputShape):
+    """The decode cache's tree for ``shape`` with shapes and dtypes only
+    (``meta`` tensors), as ``train.abstract_params`` is for the params."""
+    return T.init_cache(cfg, shape.global_batch, shape.seq_len,
+                        device="meta")
 
 
 def make_serve_step(cfg: ModelConfig, device="cuda",

@@ -41,7 +41,9 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                  "serve.router", "serve.gateway", "serve.__main__",
                  "obs.report", "obs.__main__", "checkpoint.ckpt",
                  "checkpoint.engine", "optim.sgd", "optim.adam",
-                 "optim.api"):
+                 "optim.api", "analysis.contracts", "analysis.rules",
+                 "analysis.__main__", "configs.paper_cnn", "launch.mesh",
+                 "launch.op_analysis", "launch.dryrun", "kernels.region"):
         assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

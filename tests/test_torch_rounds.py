@@ -105,9 +105,19 @@ def test_run_fl_hands_a_positional_tracer_to_the_trainer():
         run_fl(FLConfig(device="cpu", **COMMON), None, None)
 
 
+# Fields that once waited for a slice of the port; a field whose slice
+# has landed is held to accepting the value (``guard_recompiles``: the
+# tooling slice; tests/test_torch_contracts.py runs it)
+PORTED_FIELDS = {"guard_recompiles"}
+
+
 @pytest.mark.parametrize("field,value", [
     ("guard_recompiles", True), ("cohort_sharding", "mesh")])
 def test_fields_not_yet_ported_raise(field, value):
+    if field in PORTED_FIELDS:
+        assert getattr(FLConfig(device="cpu", **{field: value}),
+                       field) == value
+        return
     with pytest.raises(ValueError, match="ROADMAP"):
         FLConfig(**{field: value})
 
