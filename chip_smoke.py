@@ -81,6 +81,23 @@ Phases, each printed as one JSON object on its own line:
     ``degraded_links``; ``qps_wall``, the median batch wall and the
     card's busy share of a session; ``python -m repro_torch.obs report``
     on the resumed engine's trace (serving and resilience sections).
+12a. ``mesh_cohort``: the client-sharded cohort engine.  The paper setup
+    with the Walker-Star windows (``FLConfig(use_constellation=True)``,
+    batched) for 4 rounds under ``cohort_sharding="off"``, then under
+    ``"mesh"`` in an NCCL group of one rank (the single-device path, bit
+    for bit; deterministic algorithms on for both); then 2 ranks spawned
+    on ``cuda:0`` over ``gloo`` (``repro_torch.launch.spawn``), 2 shards,
+    each round from the "off" run's params before it: params within
+    1e-5, losses within 1e-5, accuracies within 4/eval_size, the ranks
+    equal, one ``fedavg_agg`` launch a round on each rank, rank 0 alone
+    tracing; the steady round wall of each run, the shard imbalance.
+12b. ``mesh_collectives``: an NCCL group of one rank: ``hierarchical_
+    weighted_psum``, ``make_replica_agg_step`` and ``shard_weighted_
+    aggregate`` (``fedavg_agg`` on CUDA tensors, one launch) at the MNIST
+    round's leaves against their plain versions; the all-reduce of the
+    round's flat buffer, timed; ``fedavg_agg`` at one shard's blocks of
+    the round (weights summing to 1/2) against its plain version, timed as
+    in phase 4.
 13. ``transformer_prefill``: full-width ``llama3.2-3b`` (random bf16
     weights from a seed), ``make_prefill_step`` on B = 4 sequences of
     2048 tokens: one ``flash_attention`` launch per layer (28), finite
@@ -165,6 +182,14 @@ Phases, each printed as one JSON object on its own line:
     one ``fedavg_agg`` launch a round, the aggregate against
     ``ref.weighted_aggregate`` of the stacked replicas, every replica
     slot equal to the aggregate, the round wall.
+20-mesh. ``mesh_fl_train_step``: ``make_fl_train_step(mesh=...)`` on
+    llama3.2-3b at full width: in an NCCL group of one rank (a ``pod``
+    mesh of 1 holding both replicas) at full depth, one launch a round,
+    the slots equal, the round wall and peak memory, and at 2 layers in
+    float32 against the one-device step within 1e-5 x (1 + |p|); then 2
+    ranks spawned on ``cuda:0`` over ``gloo``, one replica each, cut to
+    ``MESH_FL_LAYERS`` layers: the replicas equal across the ranks after
+    each round; each rank's round wall and peak memory.
 20a. ``moe_fl_train_step``: the same on deepseek-v2-lite-16b at full
     width cut to 2 layers (its expert leaves are 3-D stacks): one
     ``fedavg_agg`` launch a round, no attention launch.
@@ -201,7 +226,8 @@ Phases, each printed as one JSON object on its own line:
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after; ``fedavg_agg``'s count in the kernel
-line sums its paths (phases 2, 2a, 8, 9, 11, 12, 20, 20a and 20b), the
+line sums its paths (phases 2, 2a, 8, 9, 11, 12, 12a, 12b, 20,
+20-mesh, 20a and 20b; the spawned ranks count their own), the
 attention and wkv counts theirs (prefill, training, the FL steps).  Then a
 ``{"kernels": [...]}`` line and, last, the device line.  Any failed phase, a missing CUDA
 device, or a directory without the rest of the repository gives a
@@ -693,13 +719,14 @@ def _agg_case(kernel, ref, shape, dtype_name, seed):
 
 
 def _round_case(kernel, ref, leaf_shapes, split, dtype_name, seed,
-                zero=None):
+                zero=None, mass=1.0):
     """The round aggregate as the main path issues it: every leaf over the
     size buckets (clients ``split``), one launch, against the plain
     version (which concatenates the buckets), beside one ``tensordot`` a
     leaf on the concatenated stacks (the yardstick) and beside the same
     kernel launched once a leaf on them.  ``zero``: the client whose
-    weight is 0 (a region that sits a merge out)."""
+    weight is 0 (a region that sits a merge out).  ``mass``: what the
+    weights sum to (a shard's share of a round, below 1)."""
     import torch
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -709,7 +736,7 @@ def _round_case(kernel, ref, leaf_shapes, split, dtype_name, seed,
     w = torch.rand(sum(split), generator=gen, device="cuda") + 0.1
     if zero is not None:
         w[zero] = 0.0
-    w = w / w.sum()
+    w = w / w.sum() * mass
     w_lib = w.to(dtype)  # the library call takes one type throughout
     stacks = [torch.cat(leaves) for leaves in zip(*parts)]
     got = kernel.aggregate(parts, w)
@@ -724,7 +751,7 @@ def _round_case(kernel, ref, leaf_shapes, split, dtype_name, seed,
               + 4 * sum(split))
     return {
         "split": list(split), "leaves": len(leaf_shapes),
-        "dtype": dtype_name,
+        "dtype": dtype_name, "weight_mass": mass,
         "max_abs_err": max(float(d.max()) for d in diffs), "tolerance": tol,
         "ok": ok,
         **_times({"kernel": lambda: kernel.aggregate(parts, w),
@@ -2935,6 +2962,492 @@ def phase_fl_train_step(launchers, agg_ref, name="llama3.2-3b",
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The mesh paths: NCCL at world 1, and 2 gloo ranks sharing cuda:0
+# ---------------------------------------------------------------------------
+MESH_ROUNDS = 4
+# the sharded cohort against one process under "off", each round from the
+# same params: the float32 aggregate summed in another order (each
+# shard's partial sum, then the all-reduce), the rest the same code
+MESH_PARAM_TOL = 1e-5
+MESH_LOSS_TOL = 1e-5
+# the 2-rank FL step on one card: llama3.2-3b at full width cut to this
+# depth, so that two processes (each with its params, gradients, float32
+# stack and all-reduce buffer) fit on the card beside each other
+MESH_FL_LAYERS = 8
+
+
+class _Exact:
+    """TF32 off for matmul and cuDNN (a TF32 convolution is ~1e-3 off,
+    and two algorithms for two batch sizes are ~1e-3 apart), cuDNN
+    deterministic and not benchmarking, deterministic algorithms on;
+    restored on exit."""
+
+    def __enter__(self):
+        import torch
+        self.saved = (_tf32_off(), torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.use_deterministic_algorithms(False)
+        _restore(self.saved[0])
+        torch.backends.cudnn.benchmark = self.saved[1]
+        return False
+
+
+class _NcclWorldOne:
+    """A process group of one rank over NCCL on ``cuda:0`` (a ``file://``
+    store under ``tmp``), destroyed on exit."""
+
+    def __init__(self, tmp, name):
+        self.store = os.path.join(tmp, f"{name}_nccl")
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{self.store}",
+                                rank=0, world_size=1)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        return False
+
+
+def _leaf_arrays(tree):
+    from repro_torch.tree import tree_leaves
+    return [x.detach().float().cpu().numpy() for x in tree_leaves(tree)]
+
+
+def _from_arrays(arrays, like):
+    """``like``'s tree with its leaves from ``arrays``, on the card."""
+    import torch
+    from repro_torch.tree import tree_map
+    it = iter(arrays)
+    return tree_map(lambda x: torch.from_numpy(next(it)).to(
+        device="cuda", dtype=x.dtype), like)
+
+
+def _paper_trainer(sharding, params, install=None):
+    """``RegionTrainer`` at the paper setup with the Walker-Star windows
+    (``FLConfig(use_constellation=True)``, MNIST CNN, batched) under
+    ``cohort_sharding=sharding``, traced in memory (a group's rank 0
+    only), ``MESH_ROUNDS`` rounds from ``params``;
+    ``install[r - 1]`` (leaf arrays), where given, replaces the params
+    before round ``r``.  Returns (trainer, each round's params as leaf
+    arrays, each round's wall to a synchronize)."""
+    import torch
+    from repro_torch.fl import FLConfig
+    from repro_torch.fl.rounds import RegionTrainer
+    from repro_torch.obs import ObsConfig
+    cfg = FLConfig(n_rounds=MESH_ROUNDS, use_constellation=True,
+                   execution="batched", cohort_sharding=sharding,
+                   obs=ObsConfig(path=None))
+    trainer = RegionTrainer(cfg, params=params)
+    out, walls = [], []
+    for r in range(MESH_ROUNDS):
+        if install is not None and r:
+            trainer.params = _from_arrays(install[r - 1], trainer.params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(r)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        out.append(_leaf_arrays(trainer.params))
+    return trainer, out, walls
+
+
+def _mesh_cohort_rank(rank, world, init, install):
+    """A rank of ``phase_mesh_cohort``: the paper setup under
+    ``cohort_sharding="mesh"``, each round from ``install``'s params, and
+    this rank's block of each bucket recorded (clients a bucket)."""
+    import torch
+    from repro_torch.fl import cohort_engine
+    from repro_torch.kernels.fedavg_agg import kernel as agg_kernel
+    from repro_torch.models.cnn import build_model
+    like, _ = build_model("mnist", 0, torch.device("cpu"))
+    splits = []
+    real = cohort_engine.CohortEngine._execute_sharded
+
+    def recorded(self, params, cohort, lr):
+        splits.append([cb.xs.shape[0] // self.shards
+                       for cb in cohort.buckets])
+        return real(self, params, cohort, lr)
+
+    agg_kernel.weighted_aggregate.launches = 0
+    cohort_engine.CohortEngine._execute_sharded = recorded
+    try:
+        with _Exact():
+            trainer, params, walls = _paper_trainer(
+                "mesh", _from_arrays(init, like), install=install)
+    finally:
+        cohort_engine.CohortEngine._execute_sharded = real
+    st, res = trainer.cohort_engine.stats, trainer.result
+    return {"shards": trainer.cohort_engine.shards, "params": params,
+            "round_wall_s": walls, "losses": res.losses,
+            "accuracies": res.accuracies, "cases": res.cases,
+            "splits": splits, "writes_trace": trainer.tracer.enabled,
+            "last_shard_imbalance": st.last_shard_imbalance,
+            "max_shard_imbalance": st.max_shard_imbalance,
+            "shard_pad_clients": st.shard_pad_clients,
+            "sharded_dispatches": st.sharded_dispatches,
+            "fedavg_agg_launches": agg_kernel.weighted_aggregate.launches,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _max_err(rounds_a, rounds_b):
+    return max(float(abs(a - b).max()) for ra, rb in zip(rounds_a, rounds_b)
+               for a, b in zip(ra, rb))
+
+
+def phase_mesh_cohort(launchers, tmp):
+    """The client-sharded cohort engine on the card.  One process runs the
+    paper setup with the Walker-Star windows for ``MESH_ROUNDS`` rounds
+    under ``cohort_sharding="off"``, then under ``"mesh"`` in an NCCL
+    group of one rank, which must take the single-device path and give
+    the same params bit for bit (every run of the phase under
+    ``_Exact``: TF32 off, deterministic algorithms).  Then 2 ranks
+    spawned on ``cuda:0`` over ``gloo`` run it under ``"mesh"`` (2
+    shards), each round from the "off" run's params before it: params
+    within ``MESH_PARAM_TOL`` of that run's, losses within
+    ``MESH_LOSS_TOL``, accuracies within 4/eval_size, plan cases equal,
+    the two ranks' params equal, one ``fedavg_agg`` launch a round on each
+    rank, and only rank 0 tracing.  The steady round wall of each run
+    (median of rounds 1..), the shard imbalance, and each rank's block of
+    the buckets (the sharded kernel shape, for ``phase_mesh_collectives``).
+    Returns the launches of all three runs and rank 0's round-0 blocks."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.models.cnn import build_model
+    p0, _ = build_model("mnist", 0, torch.device("cpu"))
+    with _Exact():
+        set_counts(launchers)
+        off, off_params, off_walls = _paper_trainer("off", p0)
+        off_launches = read_counts(launchers)["fedavg_agg"]
+        with _NcclWorldOne(tmp, "mesh_cohort"):
+            set_counts(launchers)
+            one, one_params, one_walls = _paper_trainer("mesh", p0)
+            one_launches = read_counts(launchers)["fedavg_agg"]
+    want = off.result
+    one_engine = one.cohort_engine
+    bit_identical = _max_err(off_params, one_params) == 0.0
+    del off, one
+    _free()
+    ranks = run_ranks(_mesh_cohort_rank, 2,
+                      os.path.join(tmp, "mesh_cohort_gloo"),
+                      (_leaf_arrays(p0), off_params), backend="gloo",
+                      device="cuda", timeout=600)
+    tol_acc = 4 / want.config.eval_size
+    param_err = [_max_err(r["params"], off_params) for r in ranks]
+    loss_err = [max(abs(a - c) for a, c in zip(r["losses"], want.losses))
+                for r in ranks]
+    acc_err = [max(abs(a - c) for a, c in zip(r["accuracies"],
+                                              want.accuracies))
+               for r in ranks]
+    ranks_equal = _max_err(ranks[0]["params"], ranks[1]["params"]) == 0.0
+    launches = off_launches + one_launches + sum(
+        r["fedavg_agg_launches"] for r in ranks)
+    ok = (bit_identical and one_engine.shards == 1
+          and one_engine.mesh is not None
+          and off_launches == one_launches == MESH_ROUNDS
+          and all(r["shards"] == 2 for r in ranks)
+          and all(r["fedavg_agg_launches"] == MESH_ROUNDS for r in ranks)
+          and all(r["cases"] == want.cases for r in ranks)
+          and max(param_err) <= MESH_PARAM_TOL
+          and max(loss_err) <= MESH_LOSS_TOL and max(acc_err) <= tol_acc
+          and ranks_equal
+          and [r["writes_trace"] for r in ranks] == [True, False])
+    steady = statistics.median
+    emit({"phase": "mesh_cohort", "ok": ok, "card": nvidia_smi(),
+          "config": "FLConfig(use_constellation=True, execution='batched')",
+          "rounds": MESH_ROUNDS, "tf32": False, "deterministic": True,
+          "off": {"round_wall_s": off_walls,
+                  "steady_round_wall_s": steady(off_walls[1:]),
+                  "fedavg_agg_launches": off_launches,
+                  "accuracies": want.accuracies, "losses": want.losses},
+          "nccl_world1_mesh": {
+              "shards": one_engine.shards, "round_wall_s": one_walls,
+              "steady_round_wall_s": steady(one_walls[1:]),
+              "fedavg_agg_launches": one_launches,
+              "bit_identical_to_off": bit_identical},
+          "gloo_2_ranks_on_cuda0": [{
+              "shards": r["shards"], "round_wall_s": r["round_wall_s"],
+              "steady_round_wall_s": steady(r["round_wall_s"][1:]),
+              "blocks_per_round": r["splits"],
+              "last_shard_imbalance": r["last_shard_imbalance"],
+              "max_shard_imbalance": r["max_shard_imbalance"],
+              "shard_pad_clients": r["shard_pad_clients"],
+              "fedavg_agg_launches": r["fedavg_agg_launches"],
+              "peak_memory_gib": r["peak_memory_gib"],
+              "writes_trace": r["writes_trace"],
+              "max_param_err": e, "max_loss_err": le,
+              "max_accuracy_err": ae}
+              for r, e, le, ae in zip(ranks, param_err, loss_err, acc_err)],
+          "param_tolerance": MESH_PARAM_TOL,
+          "loss_tolerance": MESH_LOSS_TOL, "accuracy_tolerance": tol_acc,
+          "ranks_equal": ranks_equal})
+    if not ok:
+        raise RuntimeError(f"mesh_cohort: the 1-rank mesh is not the "
+                           f"single-device path bit for bit "
+                           f"({bit_identical}), or the 2-rank sharded "
+                           f"rounds disagree with one process (params "
+                           f"{param_err}, losses {loss_err}, accuracies "
+                           f"{acc_err})")
+    return launches, ranks[0]["splits"][0]
+
+
+def phase_mesh_collectives(launchers, agg_kernel, agg_ref, shard_split,
+                           tmp):
+    """The mesh aggregates on the card in an NCCL group of one rank, at
+    the MNIST round's leaves: ``hierarchical_weighted_psum`` over (data,
+    pod) of a (1, 1) mesh and ``make_replica_agg_step`` against ``lam x
+    params`` (the all-reduce of one rank is the identity);
+    ``shard_weighted_aggregate`` over the round's two buckets (one
+    ``fedavg_agg`` launch on CUDA tensors) against ``ref.aggregate``, each
+    within ``TOLERANCE``; the all-reduce of the round's flat buffer, timed;
+    and the kernel at one shard's blocks of the round (``shard_split``,
+    from ``phase_mesh_cohort``; weights summing to 1/2) against its plain
+    version, timed from a replayed CUDA graph beside its bound."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.fl import aggregation as agg
+    from repro_torch.launch.mesh import make_cohort_mesh
+    from repro_torch.launch.train import make_replica_agg_step
+    from repro_torch.models.cnn import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    params, _ = build_model("mnist", 0, torch.device("cuda"))
+    leaves = tree_leaves(params)
+    leaf_shapes = [tuple(t.shape) for t in leaves]
+    tol = TOLERANCE["float32"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    split = [2 * c for c in shard_split]
+    parts = [tree_map(lambda p: torch.randn((c,) + tuple(p.shape),
+                                            generator=gen, device="cuda"),
+                      params) for c in split]
+    w = torch.rand(sum(split), generator=gen, device="cuda") + 0.1
+    w = w / w.sum()
+
+    def err(got, want):
+        return max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(tree_leaves(got), want))
+
+    with _NcclWorldOne(tmp, "mesh_collectives"):
+        data = make_cohort_mesh(device="cuda")
+        grid = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("pod", "data"))
+        lam = 0.375
+        scaled = [lam * x for x in leaves]
+        psum_err = err(agg.hierarchical_weighted_psum(
+            params, lam, ("data", "pod"), grid), scaled)
+        step_err = err(make_replica_agg_step(grid, ("data", "pod"))(
+            params, torch.tensor(lam, device="cuda")), scaled)
+        set_counts(launchers)
+        shard = agg.shard_weighted_aggregate_multi(parts, w, ("data",),
+                                                   data)
+        torch.cuda.synchronize()
+        launches = read_counts(launchers)["fedavg_agg"]
+        shard_err = err(shard, agg_ref.aggregate(
+            [tree_leaves(p) for p in parts], w))
+        flat, _ = agg._flat_buffer(leaf_shapes, torch.device("cuda"))
+        group = data.get_group("data")
+        allreduce_ms = _event_ms(
+            lambda: [dist.all_reduce(flat, group=group) for _ in range(20)],
+            5) / 20
+    case = _round_case(agg_kernel, agg_ref, leaf_shapes, shard_split,
+                       "float32", 12, mass=0.5)
+    emit({"phase": "kernel", "kernel": "fedavg_agg",
+          "model": "mnist round aggregate, one shard of 2 (its blocks of "
+                   "both buckets, weights summing to 1/2, one launch)",
+          **case})
+    ok = (psum_err <= tol and step_err <= tol and shard_err <= tol
+          and launches == 1 and case["ok"])
+    emit({"phase": "mesh_collectives", "ok": ok, "card": nvidia_smi(),
+          "backend": "nccl", "world": 1, "leaves": len(leaves),
+          "params": sum(x.numel() for x in leaves),
+          "flat_buffer_bytes": flat.numel() * 4,
+          "psum_max_abs_err": psum_err,
+          "replica_agg_step_max_abs_err": step_err,
+          "shard_aggregate_max_abs_err": shard_err, "tolerance": tol,
+          "round_split": split, "fedavg_agg_launches": launches,
+          "allreduce_world1_ms": allreduce_ms,
+          "sharded_kernel": {k: case[k] for k in (
+              "split", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+              "bound_by", "max_abs_err")}})
+    if not ok:
+        raise RuntimeError("mesh_collectives: a mesh aggregate disagrees "
+                           "with its plain version, or fedavg_agg did not "
+                           "launch once")
+    return launches
+
+
+def _mesh_fl_rank(rank, world, n_layers, rounds):
+    """A rank of ``phase_mesh_fl_train_step``: one llama3.2-3b replica
+    (full width, ``n_layers`` deep, bf16, seed 0) on a ``pod`` mesh of
+    ``world`` ranks, its slice of the batch, ``rounds`` rounds of 2 local
+    steps; walls, peak memory, launches and each leaf's first elements
+    and float64 sum."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels.fedavg_agg import kernel as agg_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.train import make_fl_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+    name = "llama3.2-3b"
+    cfg = _config(name, n_layers)
+    pods = init_device_mesh("cuda", (world,), mesh_dim_names=("pod",))
+    rep = tree_map(lambda x: x[None].clone(),
+                   T.init_params(cfg, seed=0, device="cuda"))
+    data = {k: v[rank:rank + 1].contiguous() for k, v in
+            _train_batch(cfg, (world, 2), 2048, seed=2).items()}
+    step = make_fl_train_step(cfg, world, InputShape(
+        "fl_smoke", 2048, 2 * world, "train"), lr=TRAIN_LR[name],
+        h_local=2, mesh=pods)
+    agg_kernel.weighted_aggregate.launches = 0
+    fa_kernel.flash_attention.launches = 0
+    fa_kernel.flash_attention_backward.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep, metrics = step(rep, data)
+        losses.append(float(metrics["loss"]))   # synchronizes
+        walls.append(time.perf_counter() - t0)
+    leaves = tree_leaves(rep)
+    return {"round_wall_s": walls, "losses": losses,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "fedavg_agg_launches": agg_kernel.weighted_aggregate.launches,
+            "flash_attention_launches": fa_kernel.flash_attention.launches,
+            "flash_attention_backward_launches":
+                fa_kernel.flash_attention_backward.launches,
+            "samples": [x.flatten()[:4096].float().cpu().numpy()
+                        for x in leaves],
+            "sums": [float(x.double().sum()) for x in leaves]}
+
+
+def phase_mesh_fl_train_step(launchers, tmp, rounds=2):
+    """``make_fl_train_step(mesh=...)`` on llama3.2-3b at full width.
+    First in an NCCL group of one rank, a ``pod`` mesh of 1 holding both
+    replicas, at full depth: ``rounds`` rounds of 2 local steps on 2 x
+    2048 tokens a replica, one ``fedavg_agg`` launch a round, both slots
+    equal, finite losses, the round wall and peak memory; and at 2 layers
+    in float32 (TF32 off) one round against today's one-device step from
+    the same params and batch, every param within 1e-5 x (1 + |p|).  Then
+    2 ranks spawned on ``cuda:0`` over ``gloo``, one replica each, cut to
+    ``MESH_FL_LAYERS`` layers: after each round the replicas equal across
+    the ranks (each leaf's first elements and its sum), one launch a
+    round on each rank; each rank's round wall and peak memory."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.launch.train import make_fl_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+    name = "llama3.2-3b"
+    shape = InputShape("fl_smoke", 2048, 4, "train")
+    out = {}
+    with _NcclWorldOne(tmp, "mesh_fl"):
+        pods = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+        cfg = _config(name)
+        rep = tree_map(lambda x: torch.stack([x] * 2),
+                       T.init_params(cfg, seed=0, device="cuda"))
+        _free()
+        data = _train_batch(cfg, (2, 2), 2048, seed=2)
+        step = make_fl_train_step(cfg, 2, shape, lr=TRAIN_LR[name],
+                                  h_local=2, mesh=pods)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        set_counts(launchers)
+        walls, losses = [], []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            rep, metrics = step(rep, data)
+            losses.append(float(metrics["loss"]))   # synchronizes
+            walls.append(time.perf_counter() - t0)
+        counts = read_counts(launchers)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        slots_equal = all(torch.equal(x[0], x[1]) for x in tree_leaves(rep))
+        attention = _attention_layers(cfg)
+        steps = rounds * 2 * 2
+        full_ok = (counts["fedavg_agg"] == rounds and slots_equal
+                   and all(math.isfinite(v) for v in losses)
+                   and counts["flash_attention"] == 2 * attention * steps)
+        out["nccl_world1_full_depth"] = {
+            "n_layers": cfg.n_layers, "replicas": 2, "round_wall_s": walls,
+            "losses": losses, "peak_memory_gib": peak,
+            "slots_equal": slots_equal, "launches": counts, "ok": full_ok}
+        del rep, data, step
+        _free()
+        # 2 layers in float32: the mesh step against today's
+        saved = _tf32_off()
+        try:
+            cfg2 = _config(name, 2, param_dtype="float32")
+            base = T.init_params(cfg2, seed=1, device="cuda")
+            reps = [tree_map(lambda x: torch.stack([x] * 2), base)
+                    for _ in range(2)]
+            del base
+            data = _train_batch(cfg2, (2, 2), 2048, seed=3)
+            set_counts(launchers)
+            got, _ = make_fl_train_step(cfg2, 2, shape, lr=TRAIN_LR[name],
+                                        h_local=2, mesh=pods)(reps[0], data)
+            want, _ = make_fl_train_step(cfg2, 2, shape, lr=TRAIN_LR[name],
+                                         h_local=2)(reps[1], data)
+            f32_launches = read_counts(launchers)["fedavg_agg"]
+            rel = max(float(((a - b).abs() / (1 + b.abs())).max())
+                      for a, b in zip(tree_leaves(got), tree_leaves(want)))
+        finally:
+            _restore(saved)
+        del reps, got, want, data
+        _free()
+        out["f32_2_layers_vs_one_device"] = {
+            "max_rel_err": rel, "tolerance": 1e-5,
+            "fedavg_agg_launches": f32_launches,
+            "ok": rel <= 1e-5 and f32_launches == 2}
+    ranks = run_ranks(_mesh_fl_rank, 2, os.path.join(tmp, "mesh_fl_gloo"),
+                      (MESH_FL_LAYERS, rounds), backend="gloo",
+                      device="cuda", timeout=900)
+    equal = (all(np.array_equal(a, b) for a, b in
+                 zip(ranks[0]["samples"], ranks[1]["samples"]))
+             and ranks[0]["sums"] == ranks[1]["sums"])
+    gloo_ok = (equal and all(r["fedavg_agg_launches"] == rounds
+                             for r in ranks)
+               and all(math.isfinite(v) for r in ranks for v in r["losses"]))
+    out["gloo_2_ranks_on_cuda0"] = {
+        "n_layers": MESH_FL_LAYERS, "replicas_per_rank": 1,
+        "ranks": [{k: r[k] for k in ("round_wall_s", "losses",
+                                     "peak_memory_gib",
+                                     "fedavg_agg_launches",
+                                     "flash_attention_launches",
+                                     "flash_attention_backward_launches")}
+                  for r in ranks],
+        "replicas_equal_across_ranks": equal, "ok": gloo_ok}
+    ok = all(v["ok"] for v in out.values())
+    emit({"phase": "mesh_fl_train_step", "ok": ok, "card": nvidia_smi(),
+          "config": name, "h_local": 2, "tokens_per_replica": 2 * 2048,
+          **out})
+    if not ok:
+        raise RuntimeError("mesh_fl_train_step: a replica apart, a launch "
+                           "count off, or the mesh step apart from the "
+                           "one-device step")
+    counts = dict(counts)
+    counts["fedavg_agg"] += f32_launches + sum(r["fedavg_agg_launches"]
+                                               for r in ranks)
+    for key in ("flash_attention", "flash_attention_backward"):
+        counts[key] += sum(r[f"{key}_launches"] for r in ranks)
+    return counts
+
+
 def phase_roofline():
     """Every prefill and train step whose wall a phase measured
     (``MEASURED_STEPS``), counted by ``repro_torch.launch.dryrun.run_one``
@@ -3044,6 +3557,11 @@ def main() -> int:
             launches += phase_serve_gateway(launchers, resumed, tmp)
             del resumed
             _free()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            mesh_launches, shard_split = phase_mesh_cohort(launchers, tmp)
+            launches += mesh_launches
+            launches += phase_mesh_collectives(launchers, agg_kernel,
+                                               agg_ref, shard_split, tmp)
         fa_launches, prefill_shapes = phase_transformer_prefill(launchers)
         phase_transformer_decode(launchers)
         f32_shapes = phase_decode_vs_prefill(launchers)
@@ -3064,6 +3582,8 @@ def main() -> int:
         rwkv_train, rwkv_train_shape = phase_rwkv6_train(launchers)
         moe_train, moe_train_shapes = phase_moe_train(launchers)
         fl_train = phase_fl_train_step(launchers, agg_ref)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            mesh_fl = phase_mesh_fl_train_step(launchers, tmp)
         moe_fl = phase_fl_train_step(launchers, agg_ref,
                                      "deepseek-v2-lite-16b", n_layers=2,
                                      phase="moe_fl_train_step")
@@ -3071,8 +3591,8 @@ def main() -> int:
         hybrid_fl = phase_fl_train_step(launchers, agg_ref, HYBRID,
                                         n_layers=2,
                                         phase="hybrid_fl_train_step")
-        trained = (train, moe_train, fl_train, moe_fl, hybrid_train,
-                   hybrid_fl)
+        trained = (train, moe_train, fl_train, mesh_fl, moe_fl,
+                   hybrid_train, hybrid_fl)
         launches += sum(c["fedavg_agg"] for c in trained)
         fa_launches += sum(c["flash_attention"] for c in trained)
         fa_bwd_launches = sum(c["flash_attention_backward"]

@@ -27,8 +27,30 @@ With ``guard=True`` every warm round (each of its bucket signatures
 seen before) runs under
 :func:`repro_torch.analysis.contracts.no_recompile`: a kernel library
 built or loaded, or a ``torch.compile`` graph, on the warm path raises
-``ContractViolation`` instead of passing unseen.  The mesh-sharded path
-waits for the multi-GPU slice (ROADMAP).
+``ContractViolation`` instead of passing unseen.
+
+Mesh-sharded mode (``sharding="mesh"``, or ``"auto"`` when a
+``torch.distributed`` process group of more than one rank is up) shards
+every bucket's CLIENT axis over the ``data`` axis of a ``DeviceMesh``
+(one process a shard, SPMD): every rank builds the same host-side cohort
+from the same seeds (the planner pads each bucket's client count to a
+multiple of the shard count: ``client_multiple``), copies only its own
+block of each bucket (rank ``i`` of ``n`` takes clients ``[i c/n, (i+1)
+c/n)`` of a bucket of ``c``) to its device, runs ``cohort_local_update``
+on it, reduces every bucket's block in ONE ``fedavg_agg`` launch with
+the weights normalized over the whole round on the host, and joins the
+other shards in one all-reduce
+(:func:`~repro_torch.fl.aggregation.shard_weighted_aggregate_multi`);
+the losses come back to every rank by a second all-reduce of a
+zero-padded vector (an all-gather in effect: each rank writes its own
+blocks, zeros elsewhere, and a sum with zeros is exact).  Bucket
+signatures carry the shard count.  With one shard (no group, a group of
+one, or a 1-rank mesh) the engine runs the exact single-device code
+path: bit-identical to ``sharding="off"``.  A faulted or quarantined
+round takes the single-device path too, on every rank over the whole
+cohort (the reference's trade: chaos rounds are rare, and correctness
+beats throughput under faults), so every rank ends the round with the
+same model.
 """
 from __future__ import annotations
 
@@ -38,15 +60,19 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..analysis import contracts
 from ..data.pipeline import BucketedCohort, build_bucketed_cohort
 from ..device import resolve_device
+from ..launch.mesh import group_size, make_cohort_mesh
+from ..sharding.specs import data_axis_size
 from ..tree import tree_leaves
-from .aggregation import client_finite_mask, fedavg_stacked_multi
+from .aggregation import (client_finite_mask, fedavg_stacked_multi,
+                          shard_weighted_aggregate_multi)
 from .client import cohort_local_update
 
-SHARDING_MODES = ("auto", "off")
+SHARDING_MODES = ("auto", "mesh", "off")
 
 
 @dataclasses.dataclass
@@ -57,6 +83,11 @@ class CohortEngineStats:
     compiled_signatures: int = 0   # distinct bucket shapes seen so far
     real_elements: int = 0         # batch elements actually drawn
     layout_elements: int = 0       # batch elements the padded layout ran
+    # mesh-sharded path only (all zero / 1.0 on a 1-shard engine):
+    sharded_dispatches: int = 0    # bucket dispatches split over shards
+    shard_pad_clients: int = 0     # padding client slots in sharded layouts
+    last_shard_imbalance: float = 1.0  # max/mean real elements per shard
+    max_shard_imbalance: float = 1.0   # worst round so far
 
     @property
     def padding_ratio(self) -> float:
@@ -65,15 +96,18 @@ class CohortEngineStats:
                 if self.real_elements else 1.0)
 
 
-def cohort_tensors(cb, device: torch.device):
-    """One bucket's host arrays as device tensors: (xs, ys, mask)."""
-    return (torch.from_numpy(cb.xs).to(device),
-            torch.from_numpy(cb.ys).to(device=device, dtype=torch.int64),
-            torch.from_numpy(cb.mask).to(device))
+def cohort_tensors(cb, device: torch.device, rows=slice(None)):
+    """One bucket's host arrays (its clients ``rows``) as device tensors:
+    (xs, ys, mask)."""
+    return (torch.from_numpy(cb.xs[rows]).to(device),
+            torch.from_numpy(cb.ys[rows]).to(device=device,
+                                             dtype=torch.int64),
+            torch.from_numpy(cb.mask[rows]).to(device))
 
 
 class CohortEngine:
-    """Executes FL rounds over size-bucketed cohorts on one device.
+    """Executes FL rounds over size-bucketed cohorts, on one device or
+    client-sharded over the ranks of a mesh (module docstring).
 
     One engine instance per FL job (``RegionTrainer`` owns one); the
     instance carries the signature bookkeeping and counters across
@@ -83,13 +117,11 @@ class CohortEngine:
 
     def __init__(self, apply_fn: Callable, batch_align: int = 32,
                  client_align: int = 4, device="cuda", tracer=None,
-                 sharding: str = "auto", guard: bool = False):
+                 sharding: str = "auto", guard: bool = False, mesh=None):
         from ..obs import NULL_TRACER
         if sharding not in SHARDING_MODES:
-            raise ValueError(
-                f"sharding={sharding!r} not in {SHARDING_MODES}: the "
-                f"mesh-sharded cohort path waits for the multi-GPU slice "
-                f"(ROADMAP)")
+            raise ValueError(f"sharding={sharding!r} not in "
+                             f"{SHARDING_MODES}")
         self.apply_fn = apply_fn
         self.device = resolve_device(device)
         self.tracer = tracer if tracer is not None else NULL_TRACER
@@ -97,6 +129,23 @@ class CohortEngine:
         self.client_align = max(1, int(client_align))
         self.sharding = sharding
         self.guard = bool(guard)
+        # client-axis sharding: "off" never shards; "mesh" shards over the
+        # given mesh, or over all ranks of the process group when one is
+        # up (without one it is a world of 1); "auto" shards only when a
+        # group of more than one rank is up
+        group_up = dist.is_available() and dist.is_initialized()
+        if sharding == "off":
+            mesh = None
+        elif mesh is None and group_up and (sharding == "mesh"
+                                            or group_size() > 1):
+            mesh = make_cohort_mesh(device=self.device)
+        if mesh is not None and mesh.get_coordinate() is None:
+            raise ValueError(f"rank {dist.get_rank()} is not in the mesh "
+                             f"{mesh}")
+        self.mesh = mesh
+        # client-axis shards a bucket splits into; 1 (including any
+        # 1-rank mesh) runs the exact single-device code path
+        self.shards = data_axis_size(mesh)
         self.signatures: set = set()
         self.round_signatures: set = set()
         self.stats = CohortEngineStats()
@@ -107,16 +156,22 @@ class CohortEngine:
               pools: Sequence[np.ndarray], n_steps: int,
               rng: np.random.Generator, max_batch: int
               ) -> Optional[BucketedCohort]:
-        """Plan + materialize this round's bucketed cohort (host side)."""
+        """Plan + materialize this round's bucketed cohort (host side).
+
+        On a sharded engine the planner additionally pads every bucket's
+        client axis to a multiple of the shard count, so it splits over
+        the shards without a remainder."""
         return build_bucketed_cohort(x, y, pools, n_steps, rng,
                                      max_batch=max_batch,
                                      batch_align=self.batch_align,
-                                     client_align=self.client_align)
+                                     client_align=self.client_align,
+                                     client_multiple=self.shards)
 
     # -- execution ----------------------------------------------------------
-    @staticmethod
-    def _bucket_signature(cb) -> tuple:
-        return cb.xs.shape + (str(cb.xs.dtype),)
+    def _bucket_signature(self, cb) -> tuple:
+        """One bucket dispatch's layout: shape and dtype ⊕ the shard
+        count (the same layout splits differently on another mesh)."""
+        return cb.xs.shape + (str(cb.xs.dtype), self.shards)
 
     def _round_signature(self, cohort: BucketedCohort) -> tuple:
         return tuple(self._bucket_signature(cb) for cb in cohort.buckets)
@@ -131,6 +186,39 @@ class CohortEngine:
         st.compiled_signatures = len(self.signatures)
         st.real_elements += cohort.real_elements
         st.layout_elements += cohort.layout_elements
+        if self.shards > 1:
+            st.sharded_dispatches += len(cohort.buckets)
+            st.shard_pad_clients += sum(
+                cb.xs.shape[0] - len(plan.members)
+                for cb, plan in zip(cohort.buckets, cohort.plans))
+            per = self._shard_real_elements(cohort)
+            imb = (float(per.max() * self.shards / per.sum())
+                   if per.sum() else 1.0)
+            st.last_shard_imbalance = imb
+            st.max_shard_imbalance = max(st.max_shard_imbalance, imb)
+            if self.tracer.enabled:
+                self.tracer.metrics.histogram(
+                    "cohort.shard_imbalance").observe(imb)
+                self.tracer.metrics.gauge(
+                    "cohort.shard_pad_clients").set(st.shard_pad_clients)
+
+    def _shard_real_elements(self, cohort: BucketedCohort) -> np.ndarray:
+        """Real (unmasked) batch elements each shard executes this round.
+
+        Every bucket's client axis splits into ``self.shards`` contiguous
+        blocks; padding clients sit at the tail, so the trailing shards
+        run the masked slack.
+        """
+        per = np.zeros(self.shards, dtype=np.int64)
+        for cb in cohort.buckets:
+            per += self._bucket_shard_real(cb)
+        return per
+
+    def _bucket_shard_real(self, cb) -> np.ndarray:
+        c = cb.mask.shape[0]
+        per_client = cb.mask.reshape(c, -1).sum(axis=1)
+        return per_client.reshape(self.shards, c // self.shards).sum(
+            axis=1).astype(np.int64)
 
     def round(self, params, cohort: BucketedCohort, lr: float,
               total: int, corrupt: Sequence[int] = (),
@@ -151,6 +239,10 @@ class CohortEngine:
         With ``self.guard``, a round whose every bucket signature is
         already in :attr:`signatures` runs under
         ``contracts.no_recompile(label="CohortEngine.round")``.
+
+        On a sharded engine a clean round runs :meth:`_execute_sharded`;
+        ``corrupt`` or ``quarantine`` send the round down the
+        single-device path on every rank (module docstring).
         """
         tr = self.tracer
         self.last_quarantined = 0
@@ -169,12 +261,17 @@ class CohortEngine:
         if tr.enabled:
             tr.metrics.gauge("cohort.padding_ratio").set(
                 self.stats.padding_ratio)
-        if warm:
-            with contracts.no_recompile(label="CohortEngine.round"):
+        if self.shards > 1 and not (corrupt or quarantine):
+            def execute():
+                return self._execute_sharded(params, cohort, lr)
+        else:
+            def execute():
                 return self._execute(params, cohort, lr, total,
                                      corrupt=corrupt, quarantine=quarantine)
-        return self._execute(params, cohort, lr, total, corrupt=corrupt,
-                             quarantine=quarantine)
+        if warm:
+            with contracts.no_recompile(label="CohortEngine.round"):
+                return execute()
+        return execute()
 
     def _trace_dispatch(self, cb, t0: float):
         """Emit one ``bucket_dispatch`` span (enabled tracer only).
@@ -187,10 +284,17 @@ class CohortEngine:
         if tr.device_timing and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         c, h, b = cb.xs.shape[0], cb.xs.shape[1], cb.xs.shape[2]
+        attrs = dict(clients=c, batch_width=b,
+                     real=int(np.count_nonzero(cb.mask)),
+                     layout=int(cb.mask.size), mesh_shape=[self.shards])
+        if self.shards > 1:
+            # per-shard real elements of THIS bucket: shard i runs
+            # clients [i*c/n, (i+1)*c/n) — the report's per-shard
+            # dispatch-time breakdown apportions dur_wall by these
+            attrs["shard_real"] = [int(v)
+                                   for v in self._bucket_shard_real(cb)]
         tr.span("bucket_dispatch", f"C{c}xH{h}xB{b}",
-                dur_wall=time.perf_counter() - t0, clients=c,
-                batch_width=b, real=int(np.count_nonzero(cb.mask)),
-                layout=int(cb.mask.size), mesh_shape=[1])
+                dur_wall=time.perf_counter() - t0, **attrs)
         tr.metrics.histogram("cohort.dispatch_wall_s").observe(
             time.perf_counter() - t0)
 
@@ -266,6 +370,57 @@ class CohortEngine:
                     dropped.append(int(plan.members[row]))
             off += cb.xs.shape[0]
         return w, dropped
+
+    # -- mesh-sharded execution ---------------------------------------------
+    def _execute_sharded(self, params, cohort: BucketedCohort, lr: float
+                         ) -> Tuple[object, List[float]]:
+        """This rank's block of every bucket: local updates, one
+        ``fedavg_agg`` launch over all the blocks with the round's
+        globally normalized weights, one all-reduce of the model and one
+        of the losses.  The model is replicated on every rank before and
+        after."""
+        trace = self.tracer.enabled
+        n = self.shards
+        i = self.mesh.get_local_rank("data")
+        w = np.concatenate([cb.sizes for cb in cohort.buckets]).astype(
+            np.float64)
+        weights = (w / max(1.0, w.sum())).astype(np.float32)
+        parts, loss_parts, shard_w = [], [], []
+        off = 0
+        for cb in cohort.buckets:
+            c = cb.xs.shape[0]
+            rows = slice(i * c // n, (i + 1) * c // n)
+            t0 = time.perf_counter() if trace else 0.0
+            xs, ys, mask = cohort_tensors(cb, self.device, rows)
+            stacked, losses = cohort_local_update(self.apply_fn, params,
+                                                  xs, ys, mask, lr)
+            if trace:
+                self._trace_dispatch(cb, t0)
+            parts.append(stacked)
+            loss_parts.append(losses)
+            shard_w.append(weights[off + rows.start:off + rows.stop])
+            off += c
+        new_params = shard_weighted_aggregate_multi(
+            parts, torch.from_numpy(np.concatenate(shard_w)).to(
+                self.device), ("data",), self.mesh)
+        return new_params, self._scatter_losses(
+            cohort, self._gather_losses(cohort, loss_parts))
+
+    def _gather_losses(self, cohort: BucketedCohort, loss_parts: List
+                       ) -> List[torch.Tensor]:
+        """Every bucket's whole loss vector on every rank, from each
+        rank's block: an all-reduce of a zero-padded vector."""
+        n = self.shards
+        i = self.mesh.get_local_rank("data")
+        sizes = [cb.xs.shape[0] for cb in cohort.buckets]
+        full = torch.zeros(sum(sizes), dtype=torch.float32,
+                           device=self.device)
+        off = 0
+        for c, losses in zip(sizes, loss_parts):
+            full[off + i * c // n:off + (i + 1) * c // n] = losses
+            off += c
+        dist.all_reduce(full, group=self.mesh.get_group("data"))
+        return list(torch.split(full, sizes))
 
     @staticmethod
     def _scatter_losses(cohort: BucketedCohort,

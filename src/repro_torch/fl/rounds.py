@@ -51,9 +51,19 @@ client updates before the aggregate.
 
 ``guard_recompiles=True`` runs every warm round of the cohort engine
 under ``analysis.contracts.no_recompile`` (``CohortEngine(guard=True)``).
-Not yet ported (ROADMAP): the sharded cohort path (multi-GPU); its
-``FLConfig`` field keeps its name but accepts only the values the port
-supports.
+
+Several GPUs (``cohort_sharding="mesh"``, or ``"auto"`` under a process
+group of more than one rank): start one process a GPU (``torchrun
+--nproc-per-node N``), and in each call ``init_process_group`` and
+``torch.cuda.set_device(local_rank)`` before ``run_fl``.  Every rank
+runs the same NumPy control plane from the same seeds (plans, clocks,
+batches and evaluation are the same on every rank, and so is the
+returned ``FLResult``), while the batched engine splits each bucket's
+clients over the ranks and joins them in an all-reduce (see
+:mod:`~repro_torch.fl.cohort_engine`).  Only rank 0 writes the ``obs``
+trace: the other ranks hold the null tracer, so N ranks do not write N
+copies of one file.  Without a group, or in a group of one, nothing
+changes.
 """
 from __future__ import annotations
 
@@ -69,7 +79,8 @@ from ..core.network import SAGIN
 from ..data import FederatedPools, make_dataset, partition
 from ..device import resolve_device
 from ..models.cnn import build_model, model_bits
-from ..obs import resolve_obs
+from ..launch.mesh import group_rank
+from ..obs import NULL_TRACER, resolve_obs
 from ..tree import tree_map
 from .aggregation import fedavg, fedavg_stacked, tree_all_finite
 from .client import cohort_local_update, evaluate, local_update
@@ -106,7 +117,10 @@ class FLConfig:
     cohort_bucketing: str = "geometric"  # geometric|global (module docstring)
     cohort_client_align: int = 4   # batched mode: bucket client-count grid
     guard_recompiles: bool = False  # warm cohort rounds under no_recompile
-    cohort_sharding: str = "auto"  # auto|off: one device until multi-GPU
+    # batched mode: shard each bucket's client axis over the ranks of a
+    # torch.distributed mesh ("mesh"), never shard ("off"), or shard
+    # exactly when a group of more than one rank is up ("auto")
+    cohort_sharding: str = "auto"  # auto|mesh|off
     # Cross-region federation override for SAGINEngine FL mode: a
     # FederationConfig replaces the scenario's wholesale; a bare policy
     # name (e.g. "soft_async") keeps the scenario's cadence/topology/
@@ -130,16 +144,6 @@ class FLConfig:
     device: str = "cuda"           # where the job runs; no CPU fallback
 
     def __post_init__(self):
-        waits = [
-            ("cohort_sharding", self.cohort_sharding, ("auto", "off"),
-             "the multi-GPU slice"),
-        ]
-        for name, value, allowed, item in waits:
-            if value not in allowed:
-                raise ValueError(
-                    f"FLConfig.{name}={value!r} is not supported by "
-                    f"repro_torch yet (allowed: {allowed}); it comes with "
-                    f"{item} (ROADMAP)")
         if self.serve is not None:
             from ..serve.gateway import resolve_serve
             resolve_serve(self.serve)   # raises unless a ServeConfig
@@ -381,7 +385,8 @@ class RegionTrainer:
             obs = cfg.obs
             if obs is None and scn is not None:
                 obs = scn.obs
-            tracer = resolve_obs(obs)
+            # one trace for all ranks of a group: rank 0's
+            tracer = resolve_obs(obs) if group_rank() == 0 else NULL_TRACER
         self.tracer = tracer
         if scn is not None:
             from ..sim.engine import region_seed

@@ -15,7 +15,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -40,7 +40,7 @@ def build():
     return fn
 
 
-def _check(buckets, weights) -> None:
+def _check(buckets, weights, out=None) -> None:
     """What the kernel takes: the table's structure first, then the
     device."""
     if not buckets or not buckets[0]:
@@ -93,21 +93,38 @@ def _check(buckets, weights) -> None:
                          f"tensor on {first.device}, got "
                          f"{weights.dtype} {tuple(weights.shape)} on "
                          f"{weights.device}")
+    if out is None:
+        return
+    if len(out) != n_leaves:
+        raise ValueError(f"out holds {len(out)} tensors for {n_leaves} "
+                         f"leaves")
+    for l, (o, x) in enumerate(zip(out, buckets[0])):
+        if (o.shape != x.shape[1:] or o.dtype != first.dtype
+                or o.device != first.device or not o.is_contiguous()):
+            raise ValueError(f"out[{l}] must be a contiguous {first.dtype} "
+                             f"{tuple(x.shape[1:])} tensor on "
+                             f"{first.device}, got {o.dtype} "
+                             f"{tuple(o.shape)} on {o.device}")
 
 
 def aggregate(buckets: Sequence[Sequence[torch.Tensor]],
-              weights: torch.Tensor) -> List[torch.Tensor]:
+              weights: torch.Tensor,
+              out: Optional[Sequence[torch.Tensor]] = None
+              ) -> List[torch.Tensor]:
     """Every leaf over every bucket, in one launch.
 
     ``buckets[b][l]`` is leaf ``l``'s (C_b, ...) stack in bucket ``b``, all
     of one type on one CUDA device; ``weights`` is the (sum C_b,) float32
     vector in bucket order.  Returns leaf ``l``'s weighted sum over all
-    clients, for every ``l``.
+    clients, for every ``l``: written into ``out[l]`` when ``out`` is
+    given (each contiguous, of the leaf's shape and type; views of one
+    flat buffer, say), else into new tensors.
     """
-    _check(buckets, weights)
+    _check(buckets, weights, out)
     first = buckets[0][0]
-    outs = [torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
-            for x in buckets[0]]
+    outs = (list(out) if out is not None else
+            [torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
+             for x in buckets[0]])
     xs = [x.data_ptr() for leaves in buckets for x in leaves]
     clients = [leaves[0].shape[0] for leaves in buckets]
     sizes = [x[0].numel() for x in buckets[0]]

@@ -3,7 +3,7 @@ PyTorch version for a CPU tensor, and for a ``meta`` tensor too, as one
 region (:mod:`..region`)."""
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -30,10 +30,14 @@ def weighted_aggregate(stacked: torch.Tensor, weights: torch.Tensor
 
 
 def aggregate(buckets: Sequence[Sequence[torch.Tensor]],
-              weights: torch.Tensor) -> List[torch.Tensor]:
+              weights: torch.Tensor,
+              out: Optional[Sequence[torch.Tensor]] = None
+              ) -> List[torch.Tensor]:
     """eq. (13) for every leaf over every size bucket: ``buckets[b][l]``
     is leaf ``l``'s (C_b, ...) stack in bucket ``b``, ``weights`` the
-    (sum C_b,) vector in bucket order.
+    (sum C_b,) vector in bucket order.  With ``out`` (one contiguous
+    tensor a leaf, of its shape and type) the results are written there
+    and ``out`` is returned.
 
     CPU tensors go to :mod:`.ref`, ``meta`` ones to :mod:`.ref` as one
     region; any others to the kernel, one launch for all of them, which
@@ -41,12 +45,13 @@ def aggregate(buckets: Sequence[Sequence[torch.Tensor]],
     """
     device = buckets[0][0].device.type
     if device == "cpu":
-        return ref.aggregate(buckets, weights)
+        return ref.aggregate(buckets, weights, out)
     if device == "meta":
         n = len(buckets[0])
-        return region.run("fedavg_agg", lambda *x: ref.aggregate(
+        outs = region.run("fedavg_agg", lambda *x: ref.aggregate(
             [x[i:i + n] for i in range(0, len(x) - 1, n)], x[-1]),
             *(x for leaves in buckets for x in leaves), weights)
-    outs = kernel.aggregate(buckets, weights)
+        return outs if out is None else list(out)
+    outs = kernel.aggregate(buckets, weights, out)
     check_kernel_outputs("fedavg_agg", *outs)
     return outs

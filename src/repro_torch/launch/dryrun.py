@@ -16,7 +16,11 @@ Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape train_4k --mesh one
   python -m repro_torch.launch.dryrun --all      # every combo, subprocesses
 Outputs JSON records under experiments/dryrun/.  Only ``--mesh one``
-exists: ``single`` and ``multi`` wait for the multi-device slice.
+exists: ``single`` and ``multi`` (the (16, 16) and (2, 16, 16) meshes,
+on a ``"fake"`` process group) wait for the tensor-parallel slice
+(ROADMAP).  Collectives a step dispatches are counted all the same
+(``op_analysis``), and their bytes over NVLink are the roofline's
+``t_collective_s``.
 """
 from __future__ import annotations
 
@@ -131,7 +135,7 @@ def run_one(arch: Union[str, ModelConfig], shape: Union[str, InputShape],
     if mesh_kind in WAITING_MESHES:
         raise ValueError(f"mesh {mesh_kind!r} is not supported by "
                          f"repro_torch yet (allowed: {MESHES}); it comes "
-                         f"with the multi-device slice (ROADMAP)")
+                         f"with the tensor-parallel slice (ROADMAP)")
     if mesh_kind not in MESHES:
         raise ValueError(f"unknown mesh {mesh_kind!r}; known: {MESHES}")
     cfg = arch if isinstance(arch, ModelConfig) else get_config(arch)
@@ -189,7 +193,7 @@ def main():
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     if args.mesh in WAITING_MESHES:
-        ap.error(f"--mesh {args.mesh} comes with the multi-device slice "
+        ap.error(f"--mesh {args.mesh} comes with the tensor-parallel slice "
                  f"(ROADMAP); only --mesh one exists")
     os.makedirs(args.out, exist_ok=True)
 

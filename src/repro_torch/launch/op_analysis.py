@@ -14,7 +14,13 @@ backward, with the reference's counting rules:
     what it returns, and an in-place window write (``index_put_``,
     ``index_copy_``, the scatters of a slice) moves twice its update, not
     the buffer it writes into.
-  * collectives: none on one device.
+  * collectives: the result bytes of each collective op on this rank,
+    by the reference's kinds (``all-reduce``, ``all-gather``,
+    ``reduce-scatter``; ``launch/dryrun.py``'s ``collective_bytes``),
+    for the functional collectives (``_c10d_functional``) and the
+    in-place ``torch.distributed`` ones (``c10d``) alike.  They count as
+    collective bytes only, not as memory traffic.  One device dispatches
+    none; a ``"fake"`` process group runs a mesh step on ``meta``.
 
 Eager PyTorch dispatches every iteration of a Python loop, so nothing
 needs scaling by trip counts (the reference multiplies ``while`` bodies
@@ -97,6 +103,50 @@ def matmul_flops(func, args, out) -> float:
     return 2.0 * out.numel() * a.shape[-1]
 
 
+def _collective_kinds():
+    """ATen collective op -> the reference's kind, for the ops this build
+    of torch registers."""
+    names = {
+        "_c10d_functional": {
+            "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+            "all_reduce_coalesced": "all-reduce",
+            "all_gather_into_tensor": "all-gather",
+            "all_gather_into_tensor_coalesced": "all-gather",
+            "reduce_scatter_tensor": "reduce-scatter",
+            "reduce_scatter_tensor_coalesced": "reduce-scatter"},
+        "c10d": {
+            "allreduce_": "all-reduce",
+            "allreduce_coalesced_": "all-reduce",
+            "allgather_": "all-gather",
+            "_allgather_base_": "all-gather",
+            "allgather_into_tensor_coalesced_": "all-gather",
+            "reduce_scatter_": "reduce-scatter",
+            "_reduce_scatter_base_": "reduce-scatter",
+            "reduce_scatter_tensor_coalesced_": "reduce-scatter"}}
+    out = {}
+    for ns, ops in names.items():
+        space = getattr(torch.ops, ns)
+        for name, kind in ops.items():
+            try:
+                out[getattr(space, name).default] = kind
+            except (AttributeError, RuntimeError):
+                pass   # not in this build
+    return out
+
+
+_COLLECTIVES = _collective_kinds()
+
+
+def collective_bytes(func, args, out) -> float:
+    """The per-rank result bytes of one collective op: what an in-place
+    op writes into its outputs (its first argument: a tensor or a list
+    of them; for ``allgather_`` the output lists), or what a functional
+    one returns."""
+    if func.namespace == "c10d":
+        return float(sum(_nbytes(t) for t in tree_leaves(args[0])))
+    return float(sum(_nbytes(t) for t in tree_leaves(out)))
+
+
 def _op_bytes(func, args, kwargs, out) -> float:
     if func in _FREE or func.is_view:
         return 0.0
@@ -153,6 +203,11 @@ class _Counter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        kind = _COLLECTIVES.get(func)
+        if kind is not None:
+            c = self.costs.collectives
+            c[kind] = c.get(kind, 0.0) + collective_bytes(func, args, out)
+            return out
         self.costs.flops += matmul_flops(func, args, out)
         if self.depth == 0:
             self.costs.bytes += _op_bytes(func, args, kwargs, out)

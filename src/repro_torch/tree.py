@@ -28,3 +28,16 @@ def tree_leaves(tree) -> List:
     if isinstance(tree, (list, tuple)):
         return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
+
+
+def tree_map_with_path(fn: Callable, tree, path: tuple = ()):
+    """``fn(path, leaf)`` leaf-wise, ``path`` the tuple of dict keys and
+    list positions (as strings) from the root to the leaf, as the
+    reference names a ``jax.tree_util`` key path."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], path + (str(k),))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, t, path + (str(i),))
+                          for i, t in enumerate(tree))
+    return fn(path, tree)

@@ -69,8 +69,13 @@ def test_round_matches_reference_engine(setup):
 
 
 def test_sharded_mode_waits_for_multi_gpu():
-    with pytest.raises(ValueError, match="multi-GPU"):
-        CohortEngine(cnn.apply_mnist_cnn, device="cpu", sharding="mesh")
+    """``sharding="mesh"`` is ported (the multi-rank cases are in
+    ``tests/test_torch_mesh_cohort.py``): without a process group it is a
+    world of one, the single-device path; an unknown mode raises."""
+    eng = CohortEngine(cnn.apply_mnist_cnn, device="cpu", sharding="mesh")
+    assert eng.mesh is None and eng.shards == 1
+    with pytest.raises(ValueError, match="sharding"):
+        CohortEngine(cnn.apply_mnist_cnn, device="cpu", sharding="bogus")
 
 
 def test_cuda_engine_raises_without_cuda():

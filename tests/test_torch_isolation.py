@@ -43,7 +43,8 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                  "checkpoint.engine", "optim.sgd", "optim.adam",
                  "optim.api", "analysis.contracts", "analysis.rules",
                  "analysis.__main__", "configs.paper_cnn", "launch.mesh",
-                 "launch.op_analysis", "launch.dryrun", "kernels.region"):
+                 "launch.op_analysis", "launch.dryrun", "kernels.region",
+                 "launch.spawn", "sharding", "sharding.specs"):
         assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -91,3 +92,32 @@ def test_chip_smoke_refuses_without_cuda():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_importing_the_port_starts_no_process_group():
+    """``import repro_torch`` and every module under it leave
+    ``torch.distributed`` as they found it: no group, no card needed."""
+    code = ("import importlib, pkgutil, sys, torch.distributed as dist\n"
+            "import repro_torch\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__,\n"
+            "                               prefix='repro_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "from repro_torch.launch.mesh import group_rank, group_size\n"
+            "print(dist.is_initialized(), group_size(), group_rank())\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "1", "0"]
+
+
+def test_a_mesh_without_a_process_group_raises():
+    from repro_torch.launch.mesh import make_cohort_mesh, make_host_mesh
+    import torch.distributed as dist
+    if dist.is_initialized():
+        pytest.skip("a process group is up in this process")
+    for make in (make_cohort_mesh, make_host_mesh):
+        with pytest.raises(RuntimeError, match="init_process_group"):
+            make(device="cpu")
+    with pytest.raises(ValueError, match="n_devices"):
+        make_cohort_mesh(2, device="cpu")

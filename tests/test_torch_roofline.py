@@ -40,6 +40,7 @@ from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6 import ref as wkv_ref
 from repro_torch.launch import dryrun
 from repro_torch.launch import op_analysis as A
+from repro_torch.launch.mesh import NVLINK_BW
 from repro_torch.launch.serve import abstract_cache
 from repro_torch.models import transformer as T
 
@@ -295,8 +296,10 @@ def test_run_one_fl_step_counts_replicas_and_aggregate():
 
 def test_mesh_single_and_multi_wait_for_the_multi_device_slice(monkeypatch,
                                                                capsys):
+    """The (16, 16) and (2, 16, 16) meshes come with the tensor-parallel
+    slice of the multi-device work."""
     for mesh in ("single", "multi"):
-        with pytest.raises(ValueError, match="multi-device slice"):
+        with pytest.raises(ValueError, match="tensor-parallel slice"):
             dryrun.run_one("llama3.2-3b", "train_4k", mesh)
         monkeypatch.setattr("sys.argv", ["dryrun", "--arch", "llama3.2-3b",
                                          "--shape", "train_4k", "--mesh",
@@ -304,7 +307,62 @@ def test_mesh_single_and_multi_wait_for_the_multi_device_slice(monkeypatch,
         with pytest.raises(SystemExit) as exit_:
             dryrun.main()
         assert exit_.value.code == 2
-        assert "multi-device slice" in capsys.readouterr().err
+        assert "tensor-parallel slice" in capsys.readouterr().err
+
+
+@pytest.fixture
+def fake_group():
+    """A ``"fake"`` process group of 8 ranks in this process: collectives
+    dispatch and return at once, nothing is sent."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=8)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_collectives_counted_on_a_fake_group(fake_group):
+    """``shard_weighted_aggregate`` over a 4-rank ``data`` axis, on
+    ``meta``: one all-reduce of the params' float32 bytes (each leaf at
+    an offset aligned to ``FLAT_ALIGN`` elements), and the kernel's
+    region; over (data, pod) of a (2, 4) mesh the all-reduce twice.
+    ``run_one``'s roofline reads the bytes over NVLink."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.fl import aggregation as agg
+    from repro_torch.models import cnn
+    from repro_torch.tree import tree_leaves, tree_map
+    params, _ = cnn.build_model("mnist", 0, META, image_shape=(28, 28, 1))
+    leaves = tree_leaves(params)
+    clients = 3
+    stacked = tree_map(lambda v: _meta(clients, *v.shape), params)
+    weights = _meta(clients)
+    n_bytes = sum(-(-v.numel() // agg.FLAT_ALIGN) * agg.FLAT_ALIGN * 4
+                  for v in leaves)
+    f32_bytes = sum(v.numel() * 4 for v in leaves)
+    assert f32_bytes <= n_bytes < f32_bytes + len(leaves) * agg.FLAT_ALIGN * 4
+    data4 = init_device_mesh("cpu", (4,), mesh_dim_names=("data",))
+    costs = A.analyze(agg.shard_weighted_aggregate, stacked, weights,
+                      ("data",), data4)
+    assert costs.collectives == {"all-reduce": n_bytes}
+    assert costs.flops == 2 * clients * f32_bytes / 4   # the plain version
+    grid = init_device_mesh("cpu", (2, 4), mesh_dim_names=("pod", "data"))
+    costs = A.analyze(agg.hierarchical_weighted_psum, params, 0.125,
+                      ("data", "pod"), grid)
+    assert costs.collectives == {"all-reduce": 2 * n_bytes}
+    roof = dryrun.roofline({"flops": 0.0, "bytes accessed": 0.0},
+                           costs.collective_total, 1,
+                           get_config("llama3.2-3b"), SHAPES["train_4k"],
+                           "train")
+    assert roof["t_collective_s"] == 2 * n_bytes / NVLINK_BW
+    assert roof["dominant"] == "collective"
+
+
+def test_no_collective_on_one_device():
+    costs = A.analyze(lambda x: x * 2, _meta(4))
+    assert costs.collectives == {} and costs.collective_total == 0
 
 
 # ---------------------------------------------------------------------------

@@ -107,8 +107,10 @@ def test_run_fl_hands_a_positional_tracer_to_the_trainer():
 
 # Fields that once waited for a slice of the port; a field whose slice
 # has landed is held to accepting the value (``guard_recompiles``: the
-# tooling slice; tests/test_torch_contracts.py runs it)
-PORTED_FIELDS = {"guard_recompiles"}
+# tooling slice; tests/test_torch_contracts.py runs it;
+# ``cohort_sharding="mesh"``: the multi-device FL slice,
+# tests/test_torch_mesh_cohort.py runs it)
+PORTED_FIELDS = {"guard_recompiles", "cohort_sharding"}
 
 
 @pytest.mark.parametrize("field,value", [
