@@ -215,20 +215,38 @@ Phases, each printed as one JSON object on its own line:
     bytes plus its two boundary buffers; scan: its f32 FLOPs), and bf16
     cases at T = 1, T = 63 and D = 16, 32.
 
+21a. ``sharded_steps``: the DTensor steps (tensor and FSDP parallelism)
+    in an NCCL group of one rank on a (1, 1) ``("data", "model")`` mesh:
+    llama3.2-3b and rwkv6-1.6b at full width and depth, prefill and one
+    train step (remat) on 4 x 2048 tokens, each against ``mesh=None``
+    from the same params and batch (bit for bit), both walls, the
+    kernels' launches, and each step's first attention and wkv call held,
+    forward and backward, against the plain version on the local inputs
+    it was given, in bf16 and in float32.
+21b. ``dryrun_mesh``: ``python -m repro_torch.launch.dryrun`` at ``--mesh
+    single`` (olmo-1b train_4k, a ``"fake"`` group of 256 ranks) and
+    ``--mesh multi --fl-step`` (llama3.2-3b, 512), each in its own
+    process: ``status: ok``, all-gather and all-reduce bytes, and
+    olmo-1b's per-device FLOPs x 256 over its one-device count in
+    [0.99, 2.0].
 22. ``roofline``: every prefill and train step whose wall phases 13-19b
-    measured, counted on the ``meta`` device by
-    ``repro_torch.launch.dryrun.run_one`` at the same config, depth and
-    shape: FLOPs, bytes, the bound (the larger of the compute and memory
-    terms on the card's rates, ``repro_torch.launch.mesh``), the wall,
-    ``bound / wall`` and ``model_flops / (wall x peak)`` (each at most
-    ``ROOFLINE_SHARE_LIMIT``), and the host seconds of each count, one
-    line a step with the card's name and power limit.
+    measured (but those in ``ROOFLINE_SKIP``), counted on the ``meta``
+    device by ``repro_torch.launch.dryrun.run_one`` at the same config,
+    depth and shape: FLOPs, bytes, the bound (the larger of the compute
+    and memory terms on the card's rates, ``repro_torch.launch.mesh``),
+    the wall, ``bound / wall`` and ``model_flops / (wall x peak)`` (each
+    at most ``ROOFLINE_SHARE_LIMIT``), and the host seconds of each
+    count, one line a step with the card's name and power limit.
+
+Every phase's line carries ``phase_s``, the host wall of the phase up to
+that line.
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after; ``fedavg_agg``'s count in the kernel
 line sums its paths (phases 2, 2a, 8, 9, 11, 12, 12a, 12b, 20,
 20-mesh, 20a and 20b; the spawned ranks count their own), the
-attention and wkv counts theirs (prefill, training, the FL steps).  Then a
+attention and wkv counts theirs (prefill, training, the FL steps, the
+sharded steps).  Then a
 ``{"kernels": [...]}`` line and, last, the device line.  Any failed phase, a missing CUDA
 device, or a directory without the rest of the repository gives a
 non-zero exit and no result line.
@@ -273,10 +291,30 @@ MEASURED_STEPS = []
 # A roofline share above this fails the roofline phase: the count or the
 # wall would be wrong (the bound is the least time the card could take)
 ROOFLINE_SHARE_LIMIT = 1.05
+# Steps measured but not counted by the roofline phase, to keep the run
+# inside its time: jamba's train step took 45.5 s of host time to count
+# (its chunked scans dispatch tens of thousands of small ops), more than
+# half the phase (NVIDIA H100 80GB HBM3 at 700 W); its
+# prefill is still counted
+ROOFLINE_SKIP = {("jamba-1.5-large-398b", "train")}
+
+
+# the host clock at the start of the running phase (``_run``)
+_PHASE_START = {"t0": None}
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries ``phase_s``, the host wall
+    of the phase so far."""
+    if "phase" in obj and _PHASE_START["t0"] is not None:
+        obj = dict(obj, phase_s=time.perf_counter() - _PHASE_START["t0"])
     print(json.dumps(obj), flush=True)
+
+
+def _run(fn, /, *args, **kw):
+    """``fn(*args, **kw)``, a phase, with its start noted for ``emit``."""
+    _PHASE_START["t0"] = time.perf_counter()
+    return fn(*args, **kw)
 
 
 def _rates():
@@ -2974,7 +3012,7 @@ MESH_LOSS_TOL = 1e-5
 # the 2-rank FL step on one card: llama3.2-3b at full width cut to this
 # depth, so that two processes (each with its params, gradients, float32
 # stack and all-reduce buffer) fit on the card beside each other
-MESH_FL_LAYERS = 8
+MESH_FL_LAYERS = 2
 
 
 class _Exact:
@@ -3460,9 +3498,13 @@ def phase_roofline():
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch import dryrun
     smi = nvidia_smi()
-    rows = []
+    rows, skipped = [], []
     for m in MEASURED_STEPS:
         cfg = m["config"]
+        if (cfg.name, m["kind"]) in ROOFLINE_SKIP:
+            skipped.append({"config": cfg.name, "kind": m["kind"],
+                            "wall_s": m["wall_s"]})
+            continue
         rec = dryrun.run_one(cfg, InputShape(f"{m['kind']}_smoke",
                                              m["seq_len"], m["batch"],
                                              m["kind"]))
@@ -3487,13 +3529,294 @@ def phase_roofline():
                      and row["model_flops_share"] <= ROOFLINE_SHARE_LIMIT)
         emit({"phase": "roofline_step", "card": smi, **row})
         rows.append(row)
-    ok = len(rows) == len(MEASURED_STEPS) > 0 and all(r["ok"] for r in rows)
+    ok = (len(rows) + len(skipped) == len(MEASURED_STEPS) > 0
+          and all(r["ok"] for r in rows))
     emit({"phase": "roofline", "ok": ok, "card": smi, "steps": len(rows),
-          "limit": ROOFLINE_SHARE_LIMIT,
+          "not_counted": skipped, "limit": ROOFLINE_SHARE_LIMIT,
           "count_host_s": sum(r["count_host_s"] for r in rows)})
     if not ok:
         raise RuntimeError(f"roofline: a step's bound / wall or model "
                            f"FLOPs share is above {ROOFLINE_SHARE_LIMIT}")
+
+
+# ---------------------------------------------------------------------------
+# Tensor and FSDP parallelism on DTensor ---------------------------------------
+# ---------------------------------------------------------------------------
+def _rel_err(got, want) -> float:
+    """max |got - want| / (1 + |want|) over two tensors (in float32)."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (1 + want.abs())).max())
+
+
+def _tree_rel_err(got, want) -> float:
+    from repro_torch.sharding.activations import to_global
+    from repro_torch.tree import tree_leaves
+    return max(_rel_err(to_global(a), b)
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def _synced(fn, *args):
+    """``fn(*args)`` and its host wall, the card synchronized on both
+    sides."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _captured_kernels():
+    """Wrap the layers' attention and wkv dispatchers to keep the first
+    call's inputs (on a mesh: the local shards a rank hands the kernel);
+    returns (records, restore)."""
+    from types import SimpleNamespace
+    from repro_torch.models import layers
+    seen = {}
+    saved = (layers.fa, layers.wkv_ops)
+
+    def keep(name, fn):
+        def call(*args, **kw):
+            if name not in seen:
+                seen[name] = ([a.detach().clone() for a in args], kw)
+            return fn(*args, **kw)
+        return call
+
+    layers.fa = SimpleNamespace(attention=keep("flash_attention",
+                                               saved[0].attention))
+    layers.wkv_ops = SimpleNamespace(wkv=keep("wkv6", saved[1].wkv),
+                                     wkv_step=saved[1].wkv_step)
+
+    def restore():
+        layers.fa, layers.wkv_ops = saved
+    return seen, restore
+
+
+def _kernel_vs_plain(kernel, plain, args, kw, tols):
+    """``kernel`` on ``args`` (their own type) against autograd through
+    ``plain`` in float32 on the same values, forward and backward (the
+    output's gradient too is made in the inputs' type and widened for
+    the plain version): the max abs errors and the elements beyond
+    ``tols`` (forward, backward; x (1 + |want|))."""
+    import torch
+    xs = [a.clone().requires_grad_() for a in args]
+    ys = [a.float().clone().requires_grad_() for a in args]
+    got, want = kernel(*xs, **kw), plain(*ys, **kw)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dout = torch.randn(got.shape, generator=gen, device="cuda").to(got.dtype)
+    got.backward(dout)
+    want.backward(dout.float())
+    fwd_past, fwd = _past_tolerance([got.detach()], [want.detach()],
+                                    tols[0])
+    bwd_past, bwd = _past_tolerance([x.grad for x in xs],
+                                    [y.grad for y in ys], tols[1])
+    finite = bool(torch.isfinite(got).all()) and all(
+        bool(torch.isfinite(x.grad).all()) for x in xs)
+    return {"forward_max_abs_err": fwd, "forward_past_tolerance": fwd_past,
+            "max_abs_out": float(want.detach().abs().max()),
+            "backward_max_abs_err": bwd,
+            "backward_past_tolerance": bwd_past,
+            "tolerances": list(tols),
+            "ok": finite and sum(fwd_past) + sum(bwd_past) == 0}
+
+
+def _kernels_on_shards(seen):
+    """Each captured kernel call, forward and backward, against autograd
+    through its plain version on the same inputs, in their own type
+    (bf16) and widened to float32 (a kernel's float32 design), each at
+    the tolerances of phases 17 and 21 for its type; both must hold."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+    out = {}
+    for name, (args, kw) in seen.items():
+        if name == "flash_attention":
+            kernel, plain = fa_ops.attention, fa_ref.attention
+            tols = (FLASH_TOLERANCE, GRAD_TOLERANCE)
+        else:
+            kernel = wkv_ops.wkv
+            plain = lambda *x: wkv_ref.wkv_chunked(*x, chunk=64)  # noqa
+            tols = (WKV_TOLERANCE, WKV_GRAD_TOLERANCE)
+        dtype = str(args[0].dtype).split(".")[-1]
+        rec = {"local_shapes": [list(a.shape) for a in args],
+               "float32": _kernel_vs_plain(
+                   kernel, plain, [a.float() for a in args], kw,
+                   (tols[0]["float32"], tols[1]["float32"]))}
+        if dtype != "float32":
+            rec[dtype] = _kernel_vs_plain(kernel, plain, args, kw,
+                                          (tols[0][dtype], tols[1][dtype]))
+        rec["ok"] = all(rec[t]["ok"] for t in ("float32", dtype))
+        out[name] = rec
+        _free()
+    return out
+
+
+def _sharded_case(launchers, label, one_step, mesh_step, args_one,
+                  args_mesh, compare):
+    """One step at ``mesh=None`` and on the mesh from equal inputs: each
+    warmed once, then timed; the mesh run's launches and the kernels'
+    local inputs held against their plain versions; the largest
+    difference by ``compare``, which must be 0: on a world of one rank
+    the DTensor path runs the same local ops as the one-device path, so
+    any difference (a dropped or mis-scaled update, say) is a fault."""
+    _synced(one_step, *args_one())
+    want, wall_one = _synced(one_step, *args_one())
+    _synced(mesh_step, *args_mesh())
+    set_counts(launchers)
+    seen, restore = _captured_kernels()
+    try:
+        got, wall_mesh = _synced(mesh_step, *args_mesh())
+    finally:
+        restore()
+    counts = read_counts(launchers)
+    err = compare(got, want)
+    del got, want
+    _free()
+    kernels = _kernels_on_shards(seen)
+    return {"case": label, "wall_one_s": wall_one, "wall_mesh_s": wall_mesh,
+            "dtensor_host_overhead_s": wall_mesh - wall_one,
+            "max_rel_err": err, "bit_equal": err == 0.0,
+            "launches": counts, "kernels_on_shards": kernels,
+            "ok": (err == 0.0
+                   and all(k["ok"] for k in kernels.values()))}
+
+
+def phase_sharded_steps(launchers, tmp):
+    """The DTensor steps in an NCCL group of one rank on a (1, 1)
+    ``("data", "model")`` mesh (``make_host_mesh``), params placed by
+    ``param_pspecs``: llama3.2-3b and rwkv6-1.6b at full width and depth,
+    prefill of 4 x 2048 tokens and one train step (remat) on 4 x 2048,
+    each against the same step at ``mesh=None`` from the same params and
+    batch: the logits, the loss and the post-step params bit for bit
+    equal (the largest difference printed); both walls (their difference is DTensor's host overhead);
+    the kernels' launches on the mesh run, as many as the one-device
+    step's; and the first attention and wkv call of each mesh step held,
+    forward and backward, against the plain version on the local inputs
+    it was given, in bf16 and in float32.  (Two ``gloo`` ranks sharing
+    the card cannot run these steps: ``gloo``'s ``all_gather_into_tensor``
+    on CUDA tensors, which DTensor dispatches, ends the process with
+    SIGSEGV on torch 2.11 (``python -m repro_torch.launch.gloo_probe``);
+    the 2-rank kernels on split heads are held in
+    ``tests/test_torch_tensor_parallel_cuda.py``, which dispatches no
+    all-gather.)"""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import (make_prefill_step,
+                                          make_sharded_train_step)
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.activations import to_global
+    cases, total = [], {k: 0 for k in launchers}
+    shape = InputShape("sharded", 2048, 4, "train")
+    with _NcclWorldOne(tmp, "sharded_steps"):
+        mesh = make_host_mesh("cuda")
+        for name in ("llama3.2-3b", "rwkv6-1.6b"):
+            cfg = _config(name)
+            params = T.init_params(cfg, seed=0, device="cuda")
+            batch = _train_batch(cfg, (4,), 2048, seed=7)
+            inputs = {"inputs": batch["inputs"]}
+            one = make_prefill_step(cfg)
+            on_mesh = make_prefill_step(cfg, mesh=mesh)
+            placed = on_mesh.place(params)
+            cases.append(_sharded_case(
+                launchers, f"{name}_prefill", one, on_mesh,
+                lambda: (params, inputs), lambda: (placed, inputs),
+                lambda got, want: _rel_err(to_global(got), want)))
+            lr = TRAIN_LR[name]
+            one = make_sharded_train_step(cfg, shape, lr=lr, donate=False)
+            on_mesh = make_sharded_train_step(cfg, shape, lr=lr,
+                                              donate=False, mesh=mesh)
+            placed = on_mesh.place(params)
+            cases.append(_sharded_case(
+                launchers, f"{name}_train_step", one, on_mesh,
+                lambda: (params, batch), lambda: (placed, batch),
+                lambda got, want: max(
+                    _tree_rel_err(got[0], want[0]),
+                    _rel_err(got[1]["loss"], want[1]["loss"]))))
+            del params, placed, batch, one, on_mesh
+            _free()
+    for case in cases:
+        for k, v in case["launches"].items():
+            total[k] += v
+    llama_pre, llama_train, rwkv_pre, rwkv_train = (c["launches"]
+                                                    for c in cases)
+    launches_ok = (llama_pre["flash_attention"] == 28
+                   and llama_train["flash_attention"] == 2 * 28
+                   and llama_train["flash_attention_backward"] == 28
+                   and rwkv_pre["wkv6"] == 24
+                   and rwkv_train["wkv6"] == 2 * 24
+                   and rwkv_train["wkv6_backward"] == 24)
+    ok = launches_ok and all(c["ok"] for c in cases)
+    emit({"phase": "sharded_steps", "ok": ok, "card": nvidia_smi(),
+          "mesh": "(1, 1) data x model, NCCL world 1",
+          "launches_ok": launches_ok, "cases": cases})
+    if not ok:
+        raise RuntimeError("sharded_steps: a DTensor step not bit for bit "
+                           "the one-device step, a kernel apart from its "
+                           "plain version, or a launch count off")
+    return total
+
+
+def _dryrun_cli(*args):
+    """``python -m repro_torch.launch.dryrun`` in a subprocess; its JSON
+    record and host wall."""
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                           *args, "--out", out], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"dryrun {' '.join(args)} failed:\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    path = next(Path(out).glob("*.json"))
+    return json.loads(path.read_text()), wall
+
+
+def phase_dryrun_mesh():
+    """The dry run on the production meshes, each in its own process on a
+    ``"fake"`` group: olmo-1b train_4k at ``--mesh single`` (256 ranks)
+    and llama3.2-3b train_4k at ``--mesh multi --fl-step`` (512), both
+    ``status: ok`` with all-gather and all-reduce bytes; olmo-1b's
+    per-device FLOPs x 256 over its ``--mesh one`` count (``run_one`` in
+    this process; its 16 heads split over ``model`` 16: in [0.99,
+    2.0])."""
+    single, wall_single = _dryrun_cli("--arch", "olmo-1b", "--shape",
+                                      "train_4k", "--mesh", "single")
+    multi, wall_multi = _dryrun_cli("--arch", "llama3.2-3b", "--shape",
+                                    "train_4k", "--mesh", "multi",
+                                    "--fl-step")
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    one = dryrun.run_one("olmo-1b", "train_4k", "one")
+    wall_one = time.perf_counter() - t0
+    ratio = single["flops_per_dev"] * 256 / one["flops_per_dev"]
+    recs = {"olmo-1b_single": (single, wall_single),
+            "llama3.2-3b_multi_fl": (multi, wall_multi)}
+    rows, ok = {}, 0.99 <= ratio <= 2.0
+    for key, (rec, wall) in recs.items():
+        coll = rec["collective_bytes_per_dev"]
+        row_ok = (rec["status"] == "ok" and coll.get("all-gather", 0) > 0
+                  and coll.get("all-reduce", 0) > 0)
+        ok = ok and row_ok
+        rows[key] = {"status": rec["status"], "n_chips": rec["n_chips"],
+                     "flops_per_dev": rec["flops_per_dev"],
+                     "bytes_per_dev": rec["bytes_per_dev"],
+                     "collective_bytes_per_dev": coll,
+                     "layouts": rec.get("layouts"),
+                     "bound_s": rec["roofline"]["bound_s"],
+                     "dominant": rec["roofline"]["dominant"],
+                     "count_s": rec["count_s"], "process_wall_s": wall,
+                     "ok": row_ok}
+    emit({"phase": "dryrun_mesh", "ok": ok, "records": rows,
+          "olmo_one_flops": one["flops_per_dev"],
+          "olmo_one_count_wall_s": wall_one,
+          "olmo_flops_x256_over_one": ratio})
+    if not ok:
+        raise RuntimeError("dryrun_mesh: a mesh record not ok, a "
+                           "collective missing, or the FLOPs ratio out of "
+                           "[0.99, 2.0]")
 
 
 def _kernel_line(name, source, replaces, launches, case):
@@ -3535,60 +3858,64 @@ def main() -> int:
                  "wkv6": wkv_kernel.wkv,
                  "wkv6_backward": wkv_kernel.wkv_backward}
     try:
-        phase_card([(agg_kernel.SOURCE, agg_kernel.build),
+        _run(phase_card, [(agg_kernel.SOURCE, agg_kernel.build),
                     (fa_kernel.SOURCE, fa_kernel.build),
                     (fa_kernel.SOURCE_BWD, fa_kernel.build_backward),
                     (wkv_kernel.SOURCE, wkv_kernel.build),
                     (wkv_kernel.SOURCE_BWD, wkv_kernel.build_backward)])
-        launches, split = phase_main_path(launchers)
+        launches, split = _run(phase_main_path, launchers)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            launches += phase_contracts(launchers, agg_kernel, tmp)
-        phase_round_profile()
-        summary = phase_kernel(agg_kernel, agg_ref, split)
-        phase_card_vs_cpu(agg_kernel)
-        phase_vgg11(agg_kernel)
-        phase_propagation()
-        launches += phase_scenario_paper(launchers)
-        launches += phase_engine_fl(launchers)
-        phase_engine_chaos(launchers)
+            launches += _run(phase_contracts, launchers, agg_kernel, tmp)
+        _run(phase_round_profile)
+        summary = _run(phase_kernel, agg_kernel, agg_ref, split)
+        _run(phase_card_vs_cpu, agg_kernel)
+        _run(phase_vgg11, agg_kernel)
+        _run(phase_propagation)
+        launches += _run(phase_scenario_paper, launchers)
+        launches += _run(phase_engine_fl, launchers)
+        _run(phase_engine_chaos, launchers)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            resumed, resume_launches = phase_engine_resume(launchers, tmp)
+            resumed, resume_launches = _run(phase_engine_resume, launchers,
+                                            tmp)
             launches += resume_launches
-            launches += phase_serve_gateway(launchers, resumed, tmp)
+            launches += _run(phase_serve_gateway, launchers, resumed, tmp)
             del resumed
             _free()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            mesh_launches, shard_split = phase_mesh_cohort(launchers, tmp)
+            mesh_launches, shard_split = _run(phase_mesh_cohort, launchers,
+                                              tmp)
             launches += mesh_launches
-            launches += phase_mesh_collectives(launchers, agg_kernel,
+            launches += _run(phase_mesh_collectives, launchers, agg_kernel,
                                                agg_ref, shard_split, tmp)
-        fa_launches, prefill_shapes = phase_transformer_prefill(launchers)
-        phase_transformer_decode(launchers)
-        f32_shapes = phase_decode_vs_prefill(launchers)
-        wkv_launches, wkv_shape = phase_rwkv6(launchers)
-        moe_launches, moe_shapes = phase_moe_prefill(launchers)
+        fa_launches, prefill_shapes = _run(phase_transformer_prefill,
+                                           launchers)
+        _run(phase_transformer_decode, launchers)
+        f32_shapes = _run(phase_decode_vs_prefill, launchers)
+        wkv_launches, wkv_shape = _run(phase_rwkv6, launchers)
+        moe_launches, moe_shapes = _run(phase_moe_prefill, launchers)
         fa_launches += moe_launches
-        phase_transformer_decode(launchers, "deepseek-v2-lite-16b",
+        _run(phase_transformer_decode, launchers, "deepseek-v2-lite-16b",
                                  "moe_decode")
-        phase_moe_decode_vs_prefill(launchers)
-        hybrid_launches, hybrid_shapes = phase_hybrid_prefill(launchers)
+        _run(phase_moe_decode_vs_prefill, launchers)
+        hybrid_launches, hybrid_shapes = _run(phase_hybrid_prefill,
+                                              launchers)
         fa_launches += hybrid_launches
-        phase_transformer_decode(launchers, HYBRID, "hybrid_decode")
-        phase_hybrid_decode_vs_prefill(launchers)
-        fa_case = phase_flash_kernel(fa_kernel, fa_ref, prefill_shapes,
+        _run(phase_transformer_decode, launchers, HYBRID, "hybrid_decode")
+        _run(phase_hybrid_decode_vs_prefill, launchers)
+        fa_case = _run(phase_flash_kernel, fa_kernel, fa_ref, prefill_shapes,
                                      f32_shapes, moe_shapes, hybrid_shapes)
-        wkv_case = phase_wkv_kernel(wkv_kernel, wkv_ref, wkv_shape)
-        train, train_shapes = phase_transformer_train(launchers)
-        rwkv_train, rwkv_train_shape = phase_rwkv6_train(launchers)
-        moe_train, moe_train_shapes = phase_moe_train(launchers)
-        fl_train = phase_fl_train_step(launchers, agg_ref)
+        wkv_case = _run(phase_wkv_kernel, wkv_kernel, wkv_ref, wkv_shape)
+        train, train_shapes = _run(phase_transformer_train, launchers)
+        rwkv_train, rwkv_train_shape = _run(phase_rwkv6_train, launchers)
+        moe_train, moe_train_shapes = _run(phase_moe_train, launchers)
+        fl_train = _run(phase_fl_train_step, launchers, agg_ref)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            mesh_fl = phase_mesh_fl_train_step(launchers, tmp)
-        moe_fl = phase_fl_train_step(launchers, agg_ref,
+            mesh_fl = _run(phase_mesh_fl_train_step, launchers, tmp)
+        moe_fl = _run(phase_fl_train_step, launchers, agg_ref,
                                      "deepseek-v2-lite-16b", n_layers=2,
                                      phase="moe_fl_train_step")
-        hybrid_train = phase_hybrid_train(launchers)
-        hybrid_fl = phase_fl_train_step(launchers, agg_ref, HYBRID,
+        hybrid_train = _run(phase_hybrid_train, launchers)
+        hybrid_fl = _run(phase_fl_train_step, launchers, agg_ref, HYBRID,
                                         n_layers=2,
                                         phase="hybrid_fl_train_step")
         trained = (train, moe_train, fl_train, mesh_fl, moe_fl,
@@ -3599,13 +3926,20 @@ def main() -> int:
                               for c in trained)
         wkv_launches += rwkv_train["wkv6"]
         wkv_bwd_launches = rwkv_train["wkv6_backward"]
-        fa_bwd_case = phase_flash_backward_kernel(fa_kernel, fa_ref,
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            sharded = _run(phase_sharded_steps, launchers, tmp)
+        fa_launches += sharded["flash_attention"]
+        fa_bwd_launches += sharded["flash_attention_backward"]
+        wkv_launches += sharded["wkv6"]
+        wkv_bwd_launches += sharded["wkv6_backward"]
+        _run(phase_dryrun_mesh)
+        fa_bwd_case = _run(phase_flash_backward_kernel, fa_kernel, fa_ref,
                                                   train_shapes,
                                                   moe_train_shapes,
                                                   hybrid_shapes)
-        wkv_bwd_case = phase_wkv_backward_kernel(wkv_kernel, wkv_ref,
+        wkv_bwd_case = _run(phase_wkv_backward_kernel, wkv_kernel, wkv_ref,
                                                  rwkv_train_shape)
-        phase_roofline()
+        _run(phase_roofline)
     except Exception:  # report the failed phase, then fail the run
         traceback.print_exc()
         emit({"phase": "failed", "error": traceback.format_exc(limit=3)})

@@ -19,6 +19,7 @@ def weighted_aggregate(stacked: torch.Tensor, weights: torch.Tensor
     A CPU tensor goes to :mod:`.ref`, a ``meta`` one to :mod:`.ref` as a
     region; any other goes to the kernel, which launches or raises.
     """
+    region.local_only("fedavg_agg", stacked, weights)
     if stacked.device.type == "cpu":
         return ref.weighted_aggregate(stacked, weights)
     if stacked.device.type == "meta":
@@ -43,6 +44,8 @@ def aggregate(buckets: Sequence[Sequence[torch.Tensor]],
     region; any others to the kernel, one launch for all of them, which
     launches or raises.
     """
+    region.local_only("fedavg_agg", weights,
+                      *(x for leaves in buckets for x in leaves))
     device = buckets[0][0].device.type
     if device == "cpu":
         return ref.aggregate(buckets, weights, out)

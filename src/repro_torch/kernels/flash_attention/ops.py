@@ -53,8 +53,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else the exact form; autograd differentiates it.  A ``meta`` tensor
     goes to the same plain version, as one region forward and one
     backward.  Any other tensor goes to the kernels through
-    :class:`FlashAttention`, for any S, which launch or raise.
+    :class:`FlashAttention`, for any S, which launch or raise.  A
+    DTensor raises: under a mesh the caller hands over local shards.
     """
+    region.local_only("flash_attention", q, k, v)
     if q.device.type in ("cpu", "meta"):
         s = q.shape[2]
         plain = (ref.blocked_attention if s >= 4096 and s % 1024 == 0

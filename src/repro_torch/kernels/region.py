@@ -70,3 +70,14 @@ def run(name: str, fn: Callable, *inputs: torch.Tensor):
     if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
         return _Plain.apply(name, fn, *inputs)
     return _region(name, lambda: fn(*inputs), inputs)
+
+
+def local_only(name: str, *tensors) -> None:
+    """Raise unless every tensor is a plain one: a DTensor has no storage
+    of its own to hand a kernel, so a dispatcher takes its local shards
+    (``sharding.activations.local_call``), never the DTensor."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name} takes plain tensors: run it on each "
+                        f"rank's local shards (sharding.activations."
+                        f"local_call), not on a DTensor")

@@ -42,8 +42,10 @@ def wkv(r, k, v, w, u) -> torch.Tensor:
     else the step-by-step scan; autograd differentiates it.  A ``meta``
     tensor goes to the same plain version, as one region forward and one
     backward.  Any other tensor goes to the kernels through :class:`WKV`,
-    for any T, which launch or raise.
+    for any T, which launch or raise.  A DTensor raises: under a mesh
+    the caller hands over local shards.
     """
+    region.local_only("wkv6", r, k, v, w, u)
     if r.device.type in ("cpu", "meta"):
         t = r.shape[2]
         plain = (ref.wkv_chunked if t >= CHUNK_THRESHOLD and t % 64 == 0

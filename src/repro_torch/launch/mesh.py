@@ -11,9 +11,10 @@ starts a process group: a launcher (``torchrun``, a test, or
 and ``torch.cuda.set_device(local_rank)`` first, and a mesh asked for
 without a group raises.  A world of one process needs no group and no
 mesh (``mesh=None`` is the one-device path).  The mesh's device type is
-the caller's device, never guessed.  ``make_production_mesh`` (the
-(16, 16) and (2, 16, 16) meshes of the dry run) comes with the
-tensor-parallel slice (ROADMAP).
+the caller's device, never guessed.  ``make_production_mesh`` gives the
+reference's (16, 16) and (2, 16, 16) meshes over a default group of 256
+or 512 ranks: real ones, or a ``"fake"`` group for the dry run on
+``meta`` (``launch/dryrun.py``); ``make_mesh`` any small one.
 
 The constants are one NVIDIA H100 80GB HBM3 (SXM, 700 W)'s, from
 NVIDIA's H100 Tensor Core GPU data sheet (dense rates, without
@@ -27,7 +28,8 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-__all__ = ["make_cohort_mesh", "make_host_mesh", "group_rank",
+__all__ = ["make_production_mesh", "make_mesh", "make_cohort_mesh",
+           "make_host_mesh", "group_rank",
            "group_size", "PEAK_FLOPS_BF16", "PEAK_FLOPS_F32", "HBM_BW",
            "NVLINK_BW", "peak_flops"]
 
@@ -73,6 +75,39 @@ def _mesh(shape, names, device):
     ranks = torch.arange(n, dtype=torch.int).reshape(shape)
     return DeviceMesh(resolve_device(device).type, ranks,
                       mesh_dim_names=names)
+
+
+def make_production_mesh(multi_pod: bool = False, device="cuda"):
+    """The reference's production mesh over the default process group:
+    (16, 16) with axes ``("data", "model")``, or with ``multi_pod``
+    (2, 16, 16) with ``("pod", "data", "model")``.  The group must hold
+    exactly 256 or 512 ranks, real or ``"fake"``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = 512 if multi_pod else 256
+    if group_size() != need:
+        raise RuntimeError(
+            f"the {'multi' if multi_pod else 'single'}-pod production mesh "
+            f"{shape} needs a default process group of {need} ranks, got "
+            f"{group_size()} (a 'fake' group serves the dry run)")
+    return _mesh(shape, names, device)
+
+
+def make_mesh(shape, names, device="cuda"):
+    """A ``DeviceMesh`` of ``shape`` with axis ``names`` over the first
+    ranks of the default process group (the tests' and the smoke's
+    (1, 2), (2, 1), (2, 2), (4, 2) and (2, 1, 2) meshes)."""
+    shape, names = tuple(int(d) for d in shape), tuple(names)
+    if len(shape) != len(names):
+        raise ValueError(f"mesh shape {shape} and names {names} differ in "
+                         f"length")
+    n = 1
+    for d in shape:
+        n *= d
+    if n > group_size():
+        raise ValueError(f"a {shape} mesh needs {n} ranks, the group has "
+                         f"{group_size()}")
+    return _mesh(shape, names, device)
 
 
 def make_host_mesh(device="cuda"):

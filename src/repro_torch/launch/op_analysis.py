@@ -28,6 +28,14 @@ by theirs); backward and ``torch.utils.checkpoint`` recompute are
 counted as dispatched, as XLA's remat is.  On the ``meta`` device
 nothing is computed, so a full-size step is counted without the card.
 
+A step on a mesh runs on DTensors (``launch/train.py``), and an op on
+DTensors is counted where DTensor runs it: on each rank's local shards,
+with the collectives its redistributions dispatch.  The counter lets
+DTensor take the op (it declines it at the global shapes), then counts
+the local ops DTensor dispatches under it; the fake tensors DTensor's
+sharding propagation runs on are not counted.  So every count is per
+device, as the reference's per-device HLO is.
+
 A hand-written kernel's stand-in on ``meta`` is its plain version, run
 as one region (``kernels/region.py``): its matmuls count as the plain
 version's, its bytes as the kernel's own (inputs read once, outputs
@@ -44,6 +52,8 @@ import math
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -135,6 +145,11 @@ def _collective_kinds():
 
 
 _COLLECTIVES = _collective_kinds()
+# the functional collectives' bookkeeping ops (waits, autograd wrappers)
+_FREE_NAMESPACES = {"_c10d_functional", "_c10d_functional_autograd",
+                    "c10d"}
+
+
 
 
 def collective_bytes(func, args, out) -> float:
@@ -202,7 +217,14 @@ class _Counter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        leaves = tree_leaves((args, kwargs))
+        if any(isinstance(t, DTensor) for t in leaves):
+            return NotImplemented      # counted at DTensor's local ops
         out = func(*args, **kwargs)
+        if func.namespace in _FREE_NAMESPACES or any(
+                isinstance(t, FakeTensor) for t in leaves):
+            if _COLLECTIVES.get(func) is None:
+                return out             # sharding propagation, or a wait
         kind = _COLLECTIVES.get(func)
         if kind is not None:
             c = self.costs.collectives

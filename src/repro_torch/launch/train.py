@@ -1,18 +1,27 @@
 """Train and prefill step factories of the transformer stack.
 
 The counterparts of the reference's ``launch/train.py``, with their
-names kept: ``abstract_params``, ``make_sharded_train_step`` (plain SGD
-on one device; ``donate`` updates the params in place; its tensor and
-FSDP sharding comes with the tensor-parallel slice, ROADMAP),
-``make_prefill_step``, ``make_replica_agg_step`` (the eq.-(13)
-all-reduce across mesh axes, one rank a shard) and
-``make_fl_train_step``, the paper's hierarchical FL on transformers:
-every replica takes ``h_local`` local SGD steps, then the eq.-(13) mean
-over the replicas runs through ``fedavg_agg``, one launch a round — on
-one device, or with a ``pod`` mesh on each rank for its own replicas,
-followed by one all-reduce across the pods.
+names kept: ``abstract_params``, ``make_sharded_train_step`` (plain SGD;
+``donate`` updates the params in place), ``make_prefill_step``,
+``make_replica_agg_step`` (the eq.-(13) all-reduce across mesh axes, one
+rank a shard) and ``make_fl_train_step``, the paper's hierarchical FL on
+transformers: every replica takes ``h_local`` local SGD steps, then the
+eq.-(13) mean over the replicas runs through ``fedavg_agg``, one launch
+a round — on one device, or with a ``pod`` mesh on each rank for its own
+replicas, followed by one all-reduce across the pods.
+
+With a ``mesh`` (a ``DeviceMesh`` with ``data`` and ``model`` axes, and
+``pod``), the train and prefill steps are data + tensor parallel with
+FSDP weights on DTensor: the params are DTensors placed by
+``param_pspecs`` (``step.place(params)``), the batch is split over the
+batch axes, activations are pinned by ``sharding.activations.shard``,
+and the hand-written kernels run on each rank's local shards.  One
+process is one device of the mesh.  ``mesh=None`` is the one-device
+path, unchanged.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -23,6 +32,9 @@ from ..device import resolve_device
 from ..fl.aggregation import (fedavg_stacked, hierarchical_weighted_psum,
                               shard_weighted_aggregate)
 from ..models import transformer as T
+from ..sharding import activations as A
+from ..sharding.specs import (PartitionSpec, distribute_params,
+                              param_pspecs, placements, redistribute_to)
 from ..tree import tree_leaves, tree_map
 
 AGG_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -47,21 +59,56 @@ def _check_batch(batch, shape: InputShape, lead: tuple) -> None:
 
 def _donated_step(cfg: ModelConfig, lr: float, dev: torch.device):
     """step(params, batch) -> (params, metrics) that writes the update
-    into ``params``' own tensors (views included) under ``no_grad``."""
+    into ``params``' own tensors (views included) under ``no_grad``.
+    Under a mesh a gradient is brought to its param's placements first,
+    and the update runs on the local shards."""
     def step(params, batch):
         grads, metrics = T.loss_and_grads(params, cfg, T.batch_to(batch,
                                                                   dev))
         with torch.no_grad():
             for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+                if A.is_dtensor(p):
+                    if tuple(g.placements) != tuple(p.placements):
+                        g = g.redistribute(p.device_mesh, p.placements)
+                    p, g = p.to_local(), g.to_local()
                 p.copy_(T.sgd_leaf(p, g, lr))
         return params, metrics
 
     return step
 
 
+@contextlib.contextmanager
+def on_mesh(mesh, batch_axes):
+    """The context a step runs in under ``mesh``: the activation specs
+    installed, and plain tensors (positions, masks) taken as replicated
+    where they meet DTensors."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    with A.activation_sharding(mesh, batch_axes), implicit_replication():
+        yield
+
+
+def place_batch(batch, mesh, batch_axes, keys=("inputs", "labels")):
+    """A batch given whole on every rank (or as DTensors) split over
+    ``batch_axes`` on ``mesh``: each rank keeps its rows."""
+    from torch.distributed.tensor import distribute_tensor
+    spec = placements(PartitionSpec(batch_axes or None), mesh)
+    out = {}
+    for key in keys:
+        x = batch[key]
+        out[key] = x if A.is_dtensor(x) else distribute_tensor(
+            x, mesh, spec, src_data_rank=None)
+    return out
+
+
+def replicated(metrics):
+    """Metrics as plain tensors, whole on every rank."""
+    return {k: A.to_global(v) for k, v in metrics.items()}
+
+
 def make_sharded_train_step(cfg: ModelConfig, shape: InputShape,
                             lr: float = 1e-3, donate: bool = True,
-                            device="cuda"):
+                            device="cuda", mesh=None, fsdp: bool = True,
+                            pod_shard_params: bool = False):
     """Returns step(params, batch) -> (params, metrics) on ``device``.
 
     Plain SGD (paper eqs. 3-6) for batches of ``shape``: ``inputs`` and
@@ -69,34 +116,80 @@ def make_sharded_train_step(cfg: ModelConfig, shape: InputShape,
     analogue of ``donate_argnums=(0,)``) updates the given params in
     place and returns them; ``donate=False`` returns new params and
     leaves the given ones untouched.
+
+    With ``mesh``: the params are DTensors placed by ``param_pspecs(cfg,
+    ..., fsdp, pod_shard_params)`` (``step.place(params)`` places a full
+    tree), the batch (whole on every rank, or DTensors) is split over the
+    batch axes, and the metrics come back whole on every rank.  The
+    update runs on each rank's local shards.
     """
     dev = resolve_device(device)
     step = (_donated_step(cfg, lr, dev) if donate
             else T.make_train_step(cfg, lr=lr, device=dev))
+    if mesh is None:
+        def train_step(params, batch):
+            _check_batch(batch, shape, (shape.global_batch,))
+            return step(params, batch)
+
+        return train_step
+
+    axes = A.batch_spec_axes(mesh, shape.global_batch)
+    pspecs = param_pspecs(cfg, abstract_params(cfg), fsdp=fsdp,
+                          pod_shard_params=pod_shard_params)
 
     def train_step(params, batch):
         _check_batch(batch, shape, (shape.global_batch,))
-        return step(params, batch)
+        with on_mesh(mesh, axes):
+            params, metrics = step(params, place_batch(batch, mesh, axes))
+            if not donate:
+                params = tree_map(lambda p, s: redistribute_to(p, mesh, s), params,
+                                  pspecs)
+        return params, replicated(metrics)
 
+    train_step.pspecs = pspecs
+    train_step.place = lambda params: distribute_params(params, mesh, pspecs)
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, device="cuda"):
+def make_prefill_step(cfg: ModelConfig, device="cuda", mesh=None,
+                      shape: InputShape = None):
     """Forward-only step (inference prefill) on ``device``.
 
     Returns ``prefill(params, {"inputs": ...}) -> (B, V)`` float32 logits
-    of the last position.  Runs under ``torch.no_grad``.
+    of the last position.  Runs under ``torch.no_grad``.  With ``mesh``
+    the params are DTensors placed by ``param_pspecs`` (``prefill.place``)
+    and the batch splits over the batch axes that ``shape``'s batch (or,
+    without ``shape``, the given batch) divides; the logits are a DTensor
+    split over the batch axes, whole over ``model``.
     """
     dev = resolve_device(device)
 
-    @torch.no_grad()
-    def prefill(params, batch):
-        inputs = batch["inputs"].to(dev)
+    def last_logits(params, inputs):
         h, _ = T.forward(params, cfg, inputs)
         # last-token logits only (decode bootstrap)
         logits = T.unembed(params, cfg, h[:, -1:, :])
         return logits[:, 0].to(torch.float32)
 
+    if mesh is None:
+        @torch.no_grad()
+        def prefill(params, batch):
+            return last_logits(params, batch["inputs"].to(dev))
+
+        return prefill
+
+    pspecs = param_pspecs(cfg, abstract_params(cfg))
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        b = shape.global_batch if shape is not None else (
+            batch["inputs"].shape[0])
+        axes = A.batch_spec_axes(mesh, b)
+        with on_mesh(mesh, axes):
+            inputs = place_batch(batch, mesh, axes, ("inputs",))["inputs"]
+            return A.shard(last_logits(params, inputs), "batch", None)
+
+    prefill.pspecs = pspecs
+    prefill.place = lambda params: distribute_params(params, mesh, pspecs)
     return prefill
 
 
@@ -113,21 +206,18 @@ def make_replica_agg_step(mesh, axis_names):
     return agg
 
 
-def _pod_size(mesh) -> int:
-    """The ``pod`` axis's size; every other axis of ``mesh`` must be 1
-    (tensor and FSDP sharding within a pod come with the tensor-parallel
-    slice)."""
+def _pod_split(mesh):
+    """``(pods, inner)``: the ``pod`` axis's size, and the mesh of the
+    other axes (``data`` x ``model``) a replica is sharded over inside
+    its pod — ``None`` where those axes are all of size 1 (a replica then
+    sits whole on its rank, as plain tensors)."""
     names = tuple(mesh.mesh_dim_names or ())
     if "pod" not in names:
         raise ValueError(f"the FL step needs a mesh with a 'pod' axis, got "
                          f"axes {names}")
-    for i, name in enumerate(names):
-        if name != "pod" and mesh.size(i) != 1:
-            raise ValueError(f"mesh axis {name!r} has size {mesh.size(i)}: "
-                             f"within a pod the FL step runs on one rank "
-                             f"(tensor and FSDP sharding wait for the "
-                             f"tensor-parallel slice)")
-    return mesh.size(names.index("pod"))
+    rest = tuple(n for n in names if n != "pod")
+    wide = [n for n in rest if mesh.size(names.index(n)) > 1]
+    return mesh.size(names.index("pod")), (mesh[rest] if wide else None)
 
 
 def make_fl_train_step(cfg: ModelConfig, n_replicas: int,
@@ -155,13 +245,17 @@ def make_fl_train_step(cfg: ModelConfig, n_replicas: int,
     returned; metrics are each replica's last step's, averaged over
     replicas.
 
-    With a ``mesh`` whose ``pod`` axis has P ranks (one process a pod,
-    every other axis of size 1), each rank holds ``n_replicas / P``
-    replicas and its slice of the batch: ``params_rep`` and the batch
-    lead with ``n_replicas / P``.  It takes the local steps as above,
-    reduces its own replicas through ``fedavg_agg`` with lambda = 1 /
-    ``n_replicas`` each, in ``agg_dtype``, and the ranks' partial sums
-    meet in one all-reduce over ``pod`` with lambda 1
+    With a ``mesh`` whose ``pod`` axis has P entries, each pod holds
+    ``n_replicas / P`` replicas and its slice of the batch: ``params_rep``
+    and the batch lead with ``n_replicas / P``.  Inside a pod a replica
+    is sharded over the other axes (``data`` x ``model``) as in
+    :func:`make_sharded_train_step`: ``params_rep`` is then DTensors on
+    that inner mesh, placed by ``param_pspecs`` behind the replica axis
+    (``fl_round.place(params_rep)``), and the batch is given whole to
+    every rank of the pod.  Each rank takes the local steps as above,
+    reduces its own local shards of its replicas through ``fedavg_agg``
+    with lambda = 1 / ``n_replicas`` each, in ``agg_dtype``, and the
+    pods' partial sums meet in one all-reduce over ``pod`` with lambda 1
     (:func:`~repro_torch.fl.aggregation.shard_weighted_aggregate`: a
     float32 aggregate is written by the kernel straight into the
     all-reduce's buffer, so the step holds no second float32 copy of the
@@ -183,12 +277,24 @@ def make_fl_train_step(cfg: ModelConfig, n_replicas: int,
     local_step = _donated_step(cfg, lr, dev)
     weights = [1.0 / n_replicas] * n_replicas
     n_local = n_replicas
+    inner = None
     if mesh is not None:
-        pods = _pod_size(mesh)
+        pods, inner = _pod_split(mesh)
         if n_replicas % pods:
             raise ValueError(f"{n_replicas} replicas do not split over "
                              f"{pods} pods")
         n_local = n_replicas // pods
+    if inner is not None:
+        axes = A.batch_spec_axes(inner, shape.global_batch // n_replicas)
+        rep_specs = tree_map(lambda s: PartitionSpec(None, *s),
+                             param_pspecs(cfg, abstract_params(cfg)))
+        plain_step = local_step
+
+        def local_step(params, batch):
+            with on_mesh(inner, axes):
+                params, metrics = plain_step(params,
+                                             place_batch(batch, inner, axes))
+            return params, replicated(metrics)
 
     def fl_round(params_rep, batch):
         _check_batch(batch, shape, (n_local,
@@ -212,6 +318,7 @@ def make_fl_train_step(cfg: ModelConfig, n_replicas: int,
             agg = _pod_aggregate(params_rep)
         with torch.no_grad():
             for x, a in zip(tree_leaves(params_rep), tree_leaves(agg)):
+                x = x.to_local() if A.is_dtensor(x) else x
                 x.copy_(a.to(x.dtype).expand_as(x))
         if mesh is None:
             metrics = {key: torch.stack([m[key] for m in per_replica]
@@ -221,13 +328,16 @@ def make_fl_train_step(cfg: ModelConfig, n_replicas: int,
         return params_rep, metrics
 
     def _pod_aggregate(params_rep):
-        """This rank's replicas at lambda 1 / n_replicas each through
-        ``fedavg_agg`` (no normalization: the weights are global), then
-        the all-reduce over ``pod``."""
+        """This rank's replicas (its local shards of them) at lambda 1 /
+        n_replicas each through ``fedavg_agg`` (no normalization: the
+        weights are global), then the all-reduce over ``pod``: the ranks
+        it joins hold the same shard of every leaf."""
+        local = tree_map(lambda x: x.to_local() if A.is_dtensor(x) else x,
+                         params_rep)
         w = torch.full((n_local,), 1.0 / n_replicas, dtype=torch.float32,
-                       device=tree_leaves(params_rep)[0].device)
+                       device=tree_leaves(local)[0].device)
         return shard_weighted_aggregate(
-            tree_map(lambda x: x.to(adt), params_rep), w, ("pod",), mesh)
+            tree_map(lambda x: x.to(adt), local), w, ("pod",), mesh)
 
     def _pod_metrics(per_replica):
         keys = sorted(per_replica[0])
@@ -236,4 +346,7 @@ def make_fl_train_step(cfg: ModelConfig, n_replicas: int,
         dist.all_reduce(sums, group=mesh.get_group("pod"))
         return {k: v / n_replicas for k, v in zip(keys, sums)}
 
+    if inner is not None:
+        fl_round.place = lambda params_rep: distribute_params(
+            params_rep, inner, rep_specs)
     return fl_round

@@ -30,6 +30,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import ops as fa
 from ..kernels.wkv6 import ops as wkv_ops
+from ..sharding import activations as A
+from ..sharding.activations import shard
 
 
 class Init:
@@ -137,24 +139,91 @@ def _split_heads(x, n_heads: int, head_dim: int):
     return x.reshape(b, s, n_heads, head_dim).transpose(1, 2)
 
 
+def attention_layout(n_q: int, n_kv: int) -> str:
+    """How GQA's heads sit on the installed mesh's ``model`` axis (which
+    is recorded, ``sharding.activations.note_layout``): ``"one"`` without
+    a mesh; ``"split"`` where both head counts divide by it (each rank its
+    own q heads and the kv heads they read); ``"kv_per_rank"`` where the
+    q heads divide and a rank's q heads all read one kv head (the group is
+    a multiple of a rank's q heads); else ``"gathered"``: the heads are
+    gathered over ``model`` and each model rank computes all of them for
+    its batch rows."""
+    if A.current_mesh() is None:
+        return "one"
+    m = A.axis_size("model")
+    if n_q % m == 0 and n_kv % m == 0:
+        layout = "split"
+    elif n_q % m == 0 and (n_q // n_kv) % (n_q // m) == 0:
+        layout = "kv_per_rank"
+    else:
+        layout = "gathered"
+    A.note_layout("attention", layout, n_q=n_q, n_kv=n_kv, model=m)
+    return layout
+
+
+def _sharded_attention(q, k, v, win, layout: str):
+    """The attention kernel on each rank's local shards (``layout`` from
+    :func:`attention_layout`; without a mesh, on q, k, v themselves): q,
+    k, v split over the batch axes, and the heads as the layout says.
+    Under ``"kv_per_rank"`` k and v arrive whole over ``model`` and each
+    rank takes the one kv head its q heads read; their gradients are then
+    partial sums over ``model``."""
+    heads = "model" if layout == "split" else None
+    q_heads = "model" if layout in ("split", "kv_per_rank") else None
+    partial = ()
+    if layout == "kv_per_rank":
+        mesh = A.current_mesh()
+        group = q.shape[1] // k.shape[1]
+        j = mesh.get_local_rank("model") * (q.shape[1]
+                                            // A.axis_size("model")) // group
+
+        def fn(ql, kl, vl):
+            return fa.attention(ql, kl[:, j:j + 1].contiguous(),
+                                vl[:, j:j + 1].contiguous(), causal=True,
+                                window=win)
+        partial = ((), ("model",), ("model",))
+    else:
+        def fn(ql, kl, vl):
+            return fa.attention(ql, kl, vl, causal=True, window=win)
+    return A.local_call(fn, (q.contiguous(), k.contiguous(), v.contiguous()),
+                        (("batch", q_heads, None, None),
+                         ("batch", heads, None, None),
+                         ("batch", heads, None, None)),
+                        ("batch", q_heads, None, None), partial)
+
+
+def _merged(o, heads: Optional[str]):
+    """The heads' outputs merged to (B, S, H * D), split over ``model``
+    for the row-parallel output projection.  Where the heads were
+    gathered (``heads`` None) the merge is first pinned whole, so that its
+    gradient is whole again before it is split back into heads."""
+    if heads is None:
+        o = shard(o, "batch", None, None)
+    return shard(o, "batch", None, "model")
+
+
 def gqa_apply(p, x, cfg: ModelConfig, positions,
               window: Optional[int] = None):
     """Full-sequence causal attention (prefill), through the kernel on a
-    CUDA tensor.  ``window`` defaults to ``cfg.sliding_window``."""
+    CUDA tensor (:func:`_sharded_attention`: on local shards under a
+    mesh).  ``window`` defaults to ``cfg.sliding_window``."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _split_heads(x @ p["wq"], hq, hd)
-    k = _split_heads(x @ p["wk"], hkv, hd)
-    v = _split_heads(x @ p["wv"], hkv, hd)
+    layout = attention_layout(hq, hkv)
+    q_spec = "model" if layout in ("one", "split", "kv_per_rank") else None
+    kv_spec = "model" if layout in ("one", "split") else None
+    q = _split_heads(shard(x @ p["wq"], "batch", None, q_spec), hq, hd)
+    k = _split_heads(shard(x @ p["wk"], "batch", None, kv_spec), hkv, hd)
+    v = _split_heads(shard(x @ p["wv"], "batch", None, kv_spec), hkv, hd)
     if cfg.qk_norm:
         q = head_rmsnorm(q, p["q_norm"])
         k = head_rmsnorm(k, p["k_norm"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     win = window if window is not None else cfg.sliding_window
-    o = fa.attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                     causal=True, window=win)
+    o = _sharded_attention(q, k, v, win, layout)
     b, _, s, _ = o.shape
-    return o.transpose(1, 2).reshape(b, s, hq * hd) @ p["wo"]
+    o = _merged(o.transpose(1, 2).reshape(b, s, hq * hd), q_spec)
+    return shard(o @ p["wo"], "batch", None, None)
 
 
 def gqa_init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
@@ -174,9 +243,11 @@ def gqa_decode(p, x, cache, pos: int, cfg: ModelConfig):
     """
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b = x.shape[0]
-    q = _split_heads(x @ p["wq"], hq, hd)                    # (B,Hq,1,hd)
-    k = _split_heads(x @ p["wk"], hkv, hd)
-    v = _split_heads(x @ p["wv"], hkv, hd)
+    # under a mesh the new token's heads are gathered: the cache splits
+    # its sequence, not its heads
+    q = _split_heads(shard(x @ p["wq"], "batch", None, None), hq, hd)
+    k = _split_heads(shard(x @ p["wk"], "batch", None, None), hkv, hd)
+    v = _split_heads(shard(x @ p["wv"], "batch", None, None), hkv, hd)
     if cfg.qk_norm:
         q = head_rmsnorm(q, p["q_norm"])
         k = head_rmsnorm(k, p["k_norm"])
@@ -185,8 +256,8 @@ def gqa_decode(p, x, cache, pos: int, cfg: ModelConfig):
     k = apply_rope(k, posv, cfg.rope_theta)
     cache_len = cache["k"].shape[2]
     slot = pos % cache_len
-    cache["k"][:, :, slot] = k[:, :, 0].to(cache["k"].dtype)
-    cache["v"][:, :, slot] = v[:, :, 0].to(cache["v"].dtype)
+    A.write_slot(cache["k"], 2, slot, k[:, :, 0])
+    A.write_slot(cache["v"], 2, slot, v[:, :, 0])
     # slots written so far: <= pos and (ring) within the window
     valid = torch.arange(cache_len, device=x.device) < min(pos + 1,
                                                            cache_len)
@@ -199,7 +270,7 @@ def gqa_decode(p, x, cache, pos: int, cfg: ModelConfig):
     scores = scores.masked_fill(~valid, -1e30)
     probs = torch.softmax(scores, dim=-1)
     o = torch.einsum("bhgk,bhkd->bhgd", probs, cache["v"].to(torch.float32))
-    o = o.to(x.dtype).reshape(b, 1, hq * hd)
+    o = shard(o.to(x.dtype).reshape(b, 1, hq * hd), "batch", None, "model")
     return o @ p["wo"], cache
 
 
@@ -220,11 +291,26 @@ def mla_init(cfg: ModelConfig, init: Init):
     }
 
 
-def _mla_qkv(p, x, cfg: ModelConfig, positions):
+def heads_spec(n_heads: int, what: str) -> Optional[str]:
+    """The spec token of a head dim of ``n_heads`` heads: ``"model"``
+    where they split evenly over the installed mesh's ``model`` axis (and
+    without a mesh), else ``None``: gathered, every model rank computes
+    all of them (recorded as ``what``'s layout)."""
+    if A.current_mesh() is None:
+        return "model"
+    m = A.axis_size("model")
+    split = n_heads % m == 0
+    A.note_layout(what, "split" if split else "gathered", n_heads=n_heads,
+                  model=m)
+    return "model" if split else None
+
+
+def _mla_qkv(p, x, cfg: ModelConfig, positions, hs="model"):
     h = cfg.n_heads
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, h, dn + dr).transpose(1, 2)
+    q = shard(x @ p["wq"], "batch", None, hs).reshape(
+        b, s, h, dn + dr).transpose(1, 2)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     kv = x @ p["wkv_a"]                                   # (B,S,r+dr)
@@ -234,17 +320,20 @@ def _mla_qkv(p, x, cfg: ModelConfig, positions):
     return q_nope, q_rope, c_kv, k_rope                  # k_rope (B,1,S,dr)
 
 
-def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, mask, cfg: ModelConfig):
+def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, mask, cfg: ModelConfig,
+                hs="model"):
     """Attention over the latent cache, in f32.
 
     q_nope: (B,H,Sq,dn); q_rope: (B,H,Sq,dr); c_kv: (B,Skv,r); k_rope:
     (B,1,Skv,dr); mask: broadcasts to (B,H,Sq,Skv), True where a key is
     seen.  Key decompression is folded into the query (q_nope @ wk_b), so
-    the scores are taken over the rank-r latent, as the reference's."""
+    the scores are taken over the rank-r latent, as the reference's.
+    ``hs`` is the heads' spec token under a mesh (:func:`heads_spec`)."""
     h = cfg.n_heads
     dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
     r = cfg.kv_lora_rank
-    wkv_b = p["wkv_b"].reshape(r, h, dn + dv).to(torch.float32)
+    wkv_b = shard(p["wkv_b"], None, hs).reshape(r, h, dn + dv).to(
+        torch.float32)
     wk_b, wv_b = wkv_b[..., :dn], wkv_b[..., dn:]         # (r,H,dn),(r,H,dv)
     c = c_kv.to(torch.float32)
     q_lat = torch.einsum("bhsd,rhd->bhsr", q_nope.to(torch.float32), wk_b)
@@ -262,13 +351,14 @@ def mla_apply(p, x, cfg: ModelConfig, positions):
     """Full-sequence causal MLA (prefill), plain torch as in the
     reference (it does not go through the attention kernel)."""
     b, s, _ = x.shape
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
+    hs = heads_spec(cfg.n_heads, "mla")
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions, hs)
     idx = torch.arange(s, device=x.device)
     mask = idx[None, :] <= idx[:, None]
-    o = _mla_attend(p, q_nope, q_rope, c_kv, k_rope, mask, cfg)
+    o = _mla_attend(p, q_nope, q_rope, c_kv, k_rope, mask, cfg, hs)
     o = o.to(x.dtype).transpose(1, 2).reshape(b, s,
                                               cfg.n_heads * cfg.v_head_dim)
-    return o @ p["wo"]
+    return _merged(o, hs) @ p["wo"]
 
 
 def mla_init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
@@ -288,18 +378,19 @@ def mla_decode(p, x, cache, pos: int, cfg: ModelConfig):
     L - 1), written into the cache's tensors in place.  Returns
     (out (B, 1, D), cache)."""
     b = x.shape[0]
+    hs = heads_spec(cfg.n_heads, "mla")
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, posv)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, posv, hs)
     cache_len = cache["c_kv"].shape[1]
     slot = min(pos, cache_len - 1)
-    cache["c_kv"][:, slot] = c_kv[:, 0].to(cache["c_kv"].dtype)
-    cache["k_rope"][:, slot] = k_rope[:, 0, 0].to(cache["k_rope"].dtype)
+    A.write_slot(cache["c_kv"], 1, slot, c_kv[:, 0])
+    A.write_slot(cache["k_rope"], 1, slot, k_rope[:, 0, 0])
     valid = torch.arange(cache_len, device=x.device) <= pos
     o = _mla_attend(p, q_nope, q_rope, cache["c_kv"],
-                    cache["k_rope"][:, None], valid, cfg)
+                    cache["k_rope"][:, None], valid, cfg, hs)
     o = o.to(x.dtype).transpose(1, 2).reshape(b, 1,
                                               cfg.n_heads * cfg.v_head_dim)
-    return o @ p["wo"], cache
+    return _merged(o, hs) @ p["wo"], cache
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +405,10 @@ def swiglu_init(cfg: ModelConfig, init: Init, d_ff: Optional[int] = None):
 
 
 def swiglu_apply(p, x):
-    return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+    h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+    if h.ndim == 3:
+        h = shard(h, "batch", None, "model")
+    return h @ p["w2"]
 
 
 def moe_init(cfg: ModelConfig, init: Init):
@@ -350,50 +444,52 @@ def _experts(p, xe, spec: str):
     return torch.einsum(f"{lhs}f,efd->{spec}", h, p["we2"])
 
 
-def moe_apply(p, x, cfg: ModelConfig):
-    """Top-k routed experts with capacity-based dispatch; tokens beyond an
-    expert's capacity drop to the shared experts (or to nothing).
-
-    Two dispatch paths, as the reference's (both plain torch there and
-    here, no kernel):
-
-    * grouped (``cfg.moe_grouped`` and S > 1): routing and capacity per
-      sequence; each expert takes its ``cap`` most-preferred tokens of
-      the row, and each token gathers its k experts' outputs back (both
-      directions gathers);
-    * flat (otherwise, every decode step): tokens of the whole batch
-      flattened, a global capacity, each expert its top-``cap`` gates,
-      combined with a scatter-add.
-
-    Gathers index the flattened tokens, so their backward is an
-    ``index_add`` into (tokens, D), not a (B, E, S, D) buffer."""
+def _moe_grouped(p, x, cfg: ModelConfig, e_lo: int = 0):
+    """The grouped dispatch's routed output (B, S, D): routing and
+    capacity per sequence; each expert takes its ``cap`` most-preferred
+    tokens of the row, and each token gathers its k experts' outputs
+    back (both directions gathers).  ``p["we*"]`` may hold only the
+    experts ``e_lo, e_lo + 1, ...`` (a rank's share under a mesh): the
+    output then sums only their contributions."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_active
-    if cfg.moe_grouped and s > 1:
-        top_w, top_i = _route(p, x, k)                        # (B,S,k)
-        gates = torch.zeros((b, s, e), dtype=torch.float32,
-                            device=x.device).scatter(-1, top_i, top_w)
-        cap = max(1, min(s, int(k * s / e * cfg.capacity_factor)))
-        g_bet = gates.detach().transpose(1, 2)                # (B,E,S)
-        # each expert's preference order over the row (stable, as
-        # jnp.argsort), and every token's rank in it: index math only
-        order = torch.argsort(-g_bet, dim=-1, stable=True)
-        ranks = torch.empty_like(order).scatter_(
-            -1, order, torch.arange(s, device=x.device).expand_as(order))
-        rows = torch.arange(b, device=x.device)[:, None, None]
-        sel_i = order[..., :cap]                              # (B,E,C)
-        xe = x.reshape(b * s, d)[rows * s + sel_i]            # (B,E,C,D)
-        ye = _experts(p, xe, "becd").to(x.dtype)              # (B,E,C,D)
-        # combine: token (b, s) finds its slot in each chosen expert
-        slot = ranks.transpose(1, 2).gather(2, top_i)         # (B,S,k)
-        valid = slot < cap
+    n_local = p["we1"].shape[0]
+    top_w, top_i = _route(p, x, k)                            # (B,S,k)
+    gates = torch.zeros((b, s, e), dtype=torch.float32,
+                        device=x.device).scatter(-1, top_i, top_w)
+    cap = max(1, min(s, int(k * s / e * cfg.capacity_factor)))
+    g_bet = gates.detach().transpose(1, 2)                    # (B,E,S)
+    # each expert's preference order over the row (stable, as
+    # jnp.argsort), and every token's rank in it: index math only
+    order = torch.argsort(-g_bet, dim=-1, stable=True)
+    ranks = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(s, device=x.device).expand_as(order))
+    rows = torch.arange(b, device=x.device)[:, None, None]
+    sel_i = order[:, e_lo:e_lo + n_local, :cap]               # (B,E,C)
+    xe = x.reshape(b * s, d)[rows * s + sel_i]                # (B,E,C,D)
+    ye = _experts(p, xe, "becd").to(x.dtype)                  # (B,E,C,D)
+    # combine: token (b, s) finds its slot in each chosen expert
+    slot = ranks.transpose(1, 2).gather(2, top_i)             # (B,S,k)
+    valid = slot < cap
+    if n_local == e:
         idx = top_i * cap + torch.clamp(slot, max=cap - 1)
-        yi = ye.reshape(b * e * cap, d)[rows * (e * cap) + idx]  # (B,S,k,D)
-        w = (top_w * valid.to(torch.float32))[..., None]
-        out = torch.sum(w.to(yi.dtype) * yi, dim=2)           # (B,S,D)
-        if cfg.n_shared_experts:
-            out = out + swiglu_apply(p["shared"], x)
-        return out.to(x.dtype)
+    else:
+        valid = valid & (top_i >= e_lo) & (top_i < e_lo + n_local)
+        idx = (torch.clamp(top_i - e_lo, 0, n_local - 1) * cap
+               + torch.clamp(slot, max=cap - 1))
+    yi = ye.reshape(b * n_local * cap, d)[rows * (n_local * cap) + idx]
+    w = (top_w * valid.to(torch.float32))[..., None]
+    return torch.sum(w.to(yi.dtype) * yi, dim=2)              # (B,S,D)
+
+
+def _moe_flat(p, x, cfg: ModelConfig, e_lo: int = 0):
+    """The flat dispatch's routed output (B, S, D): tokens of the whole
+    batch flattened, a global capacity, each expert its top-``cap``
+    gates, combined with a scatter-add.  ``e_lo`` as in
+    :func:`_moe_grouped`."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.n_experts_active
+    n_local = p["we1"].shape[0]
     t = b * s
     xt = x.reshape(t, d)
     top_w, top_i = _route(p, xt, k)                           # (T,k)
@@ -404,13 +500,62 @@ def moe_apply(p, x, cfg: ModelConfig):
     # it also takes tokens at gate 0 (which ones is unspecified, in either
     # package), whose outputs are weighted by 0
     sel_w, sel_i = torch.topk(gates.T, cap, dim=-1)           # (E,C)
+    sel_w, sel_i = sel_w[e_lo:e_lo + n_local], sel_i[e_lo:e_lo + n_local]
     ye = _experts(p, xt[sel_i], "ecd")                        # (E,C,D)
     ye = ye * sel_w[..., None].to(ye.dtype)
     out = torch.zeros((t, d), dtype=ye.dtype, device=x.device).index_add(
         0, sel_i.reshape(-1), ye.reshape(-1, d))
+    return out.reshape(b, s, d)
+
+
+def _moe_sharded(p, x, cfg: ModelConfig, grouped: bool):
+    """The routed experts, under a mesh on each rank's local shards.  The
+    experts split over ``model`` where their count divides by it (each
+    rank computes its own; the output is a partial sum, all-reduced over
+    ``model``), else every model rank computes all of them.  The grouped
+    dispatch routes each rank's own batch rows (routing is per sequence,
+    so this is exact); the flat one routes the gathered batch, as its
+    capacity is global over the batch."""
+    mesh = A.current_mesh()
+    e, m = cfg.n_experts, A.axis_size("model")
+    split = e % m == 0
+    A.note_layout("moe", "experts_split" if split else "experts_gathered",
+                  n_experts=e, model=m)
+    es = "model" if split else None
+    rank = mesh.get_local_rank("model") if m > 1 else 0
+    core = _moe_grouped if grouped else _moe_flat
+
+    def fn(xl, router, we1, we3, we2):
+        q = {"router": router, "we1": we1, "we3": we3, "we2": we2}
+        return core(q, xl, cfg, rank * we1.shape[0] if split else 0)
+
+    bx = "batch" if grouped else None
+    rows = A.batch_split_axes() if grouped else ()
+    mp = ("model",) if split else ()
+    out = A.local_call(
+        fn, (x, p["router"], p["we1"], p["we3"], p["we2"]),
+        ((bx, None, None), (None, None), (es, None, None), (es, None, None),
+         (es, None, None)),
+        (bx, None, None), (mp, rows + mp, rows, rows, rows),
+        out_partial=mp)
+    return shard(out, "batch", None, None)
+
+
+def moe_apply(p, x, cfg: ModelConfig):
+    """Top-k routed experts with capacity-based dispatch; tokens beyond an
+    expert's capacity drop to the shared experts (or to nothing).
+
+    Two dispatch paths, as the reference's (both plain torch there and
+    here, no kernel): grouped (``cfg.moe_grouped`` and S > 1,
+    :func:`_moe_grouped`) and flat (otherwise, every decode step,
+    :func:`_moe_flat`).  Gathers index the flattened tokens, so their
+    backward is an ``index_add`` into (tokens, D), not a (B, E, S, D)
+    buffer.  Under a mesh, on local shards (:func:`_moe_sharded`)."""
+    grouped = cfg.moe_grouped and x.shape[1] > 1
+    out = _moe_sharded(p, x, cfg, grouped)
     if cfg.n_shared_experts:
-        out = out + swiglu_apply(p["shared"], xt)
-    return out.reshape(b, s, d).to(x.dtype)
+        out = out + swiglu_apply(p["shared"], x)
+    return out.to(x.dtype)
 
 
 def moe_aux_loss(p, x, cfg: ModelConfig):
@@ -506,7 +651,10 @@ def _mamba_dt_bc(p, xi, x_dtype, st: int):
     ``xi`` (f32), as the reference: x_proj in the model's type, the rest
     in f32."""
     dt_rank = p["dt_proj"].shape[0]
-    proj = (xi.to(x_dtype) @ p["x_proj"]).to(torch.float32)
+    # under a mesh ``xi``'s channels split over ``model``: the partial
+    # sums are all-reduced here
+    proj = shard((xi.to(x_dtype) @ p["x_proj"]).to(torch.float32),
+                 "batch", *(None,) * (xi.ndim - 1))
     dt = F.softplus(proj[..., :dt_rank] @ p["dt_proj"] + p["dt_bias"])
     return (dt, proj[..., dt_rank:dt_rank + st],
             proj[..., dt_rank + st:])
@@ -519,15 +667,23 @@ def mamba_apply(p, x, cfg: ModelConfig):
     gate, out_proj."""
     _, s, d = x.shape
     di = cfg.expand * d
-    xz = x @ p["in_proj"]
-    xi, z = xz[..., :di], xz[..., di:]
+    xz = shard(x @ p["in_proj"], "batch", None, "model")
+    xi = shard(xz[..., :di], "batch", None, "model")
+    z = shard(xz[..., di:], "batch", None, "model")
     ck = p["conv_w"].shape[0]
     xpad = F.pad(xi.to(torch.float32), (0, 0, ck - 1, 0))
     conv = sum(xpad[:, i:i + s] * p["conv_w"][i] for i in range(ck))
     xi = F.silu(conv + p["conv_b"])
     dt, b_t, c_t = _mamba_dt_bc(p, xi, x.dtype, cfg.d_state)
     a = -torch.exp(p["a_log"])
-    y = _mamba_ssm_scan(xi, dt, b_t, c_t, a, chunk=cfg.mamba_scan_chunk)
+    # channel-wise: under a mesh each rank scans its own channels of di
+    y = A.local_call(
+        lambda *t: _mamba_ssm_scan(*t, chunk=cfg.mamba_scan_chunk),
+        (xi, dt, b_t, c_t, a),
+        (("batch", None, "model"), ("batch", None, "model"),
+         ("batch", None, None), ("batch", None, None), ("model", None)),
+        ("batch", None, "model"),
+        ((), (), ("model",), ("model",), A.batch_split_axes()))
     y = y + xi * p["d_skip"]
     y = y * F.silu(z.to(torch.float32))
     return y.to(x.dtype) @ p["out_proj"]
@@ -549,7 +705,8 @@ def mamba_decode(p, x, cache, cfg: ModelConfig):
     (out (B, 1, D), new cache)."""
     di = cfg.expand * cfg.d_model
     xz = x[:, 0] @ p["in_proj"]
-    xi, z = xz[..., :di], xz[..., di:]
+    xi = shard(xz[..., :di], "batch", "model")
+    z = shard(xz[..., di:], "batch", "model")
     hist = torch.cat([cache["conv"].to(torch.float32),
                       xi.to(torch.float32)[:, None]], dim=1)
     conv = torch.einsum("bkd,kd->bd", hist, p["conv_w"])
@@ -624,22 +781,29 @@ def rwkv6_time_mix(p, x, cfg: ModelConfig, shift_prev=None):
     def mix(m):
         return x * m.to(x.dtype) + xs * (1.0 - m).to(x.dtype)
 
-    r = mix(p["mix_r"]) @ p["wr"]
-    k = mix(p["mix_k"]) @ p["wk"]
-    v = mix(p["mix_v"]) @ p["wv"]
-    g = mix(p["mix_g"]) @ p["wg"]
-    w_raw = mix(p["mix_w"]) @ p["ww"]
+    hs = heads_spec(h, "wkv6")
+    r = shard(mix(p["mix_r"]) @ p["wr"], "batch", None, hs)
+    k = shard(mix(p["mix_k"]) @ p["wk"], "batch", None, hs)
+    v = shard(mix(p["mix_v"]) @ p["wv"], "batch", None, hs)
+    g = shard(mix(p["mix_g"]) @ p["wg"], "batch", None, hs)
+    w_raw = shard(mix(p["mix_w"]) @ p["ww"], "batch", None, hs)
     w = torch.exp(-torch.exp(w_raw.to(torch.float32) + p["w_bias"]))
 
     def heads(t):
-        return t.reshape(b, s, h, hd).transpose(1, 2).contiguous()
+        t = shard(t, "batch", None, hs)
+        return shard(t.reshape(b, s, h, hd).transpose(1, 2),
+                     "batch", hs, None, None).contiguous()
 
-    o = wkv_ops.wkv(heads(r), heads(k), heads(v), heads(w.to(x.dtype)),
-                    p["u"].to(x.dtype).contiguous())
+    args = (heads(r), heads(k), heads(v), heads(w.to(x.dtype)),
+            shard(p["u"], hs, None).to(x.dtype).contiguous())
+    spec = ("batch", hs, None, None)
+    o = A.local_call(wkv_ops.wkv, args, (spec,) * 4 + ((hs, None),), spec,
+                     ((),) * 4 + (A.batch_split_axes(),))
     # group-norm over each head, then the gate
     o = head_rmsnorm(o, p["ln_scale"])
-    o = o.transpose(1, 2).reshape(b, s, d)
-    o = o * F.silu(g.to(torch.float32)).to(o.dtype)
+    o = _merged(o.transpose(1, 2).reshape(b, s, d), hs)
+    o = o * F.silu(shard(g, "batch", None, "model").to(torch.float32)
+                   ).to(o.dtype)
     return o @ p["wo"], x[:, -1]
 
 
@@ -650,7 +814,7 @@ def rwkv6_channel_mix(p, x, shift_prev=None):
     xk = x * p["mix_k"] + xs * (1.0 - p["mix_k"])
     xr = x * p["mix_r"] + xs * (1.0 - p["mix_r"])
     k = torch.square(torch.relu(xk.to(x.dtype) @ p["wck"]))
-    kv = k @ p["wcv"]
+    kv = shard(k, "batch", None, "model") @ p["wcv"]
     gate = torch.sigmoid((xr.to(x.dtype) @ p["wcr"]).to(torch.float32))
     return gate.to(x.dtype) * kv, x[:, -1]
 
@@ -683,11 +847,18 @@ def rwkv6_time_mix_decode(p, x, cache_wkv, shift_prev, cfg: ModelConfig):
     w_raw = mix(p["mix_w"]).to(x.dtype) @ p["ww"]
     w = torch.exp(-torch.exp(w_raw.to(torch.float32) + p["w_bias"]))
 
-    def hsplit(t):
-        return t.reshape(b, h, hd)
+    hs = heads_spec(h, "wkv6")
 
-    s_new, o = wkv_ops.wkv_step(cache_wkv, hsplit(r), hsplit(k), hsplit(v),
-                                hsplit(w.to(x.dtype)), p["u"].to(x.dtype))
+    def hsplit(t):
+        return shard(t, "batch", hs).reshape(b, h, hd)
+
+    args = (cache_wkv, hsplit(r), hsplit(k), hsplit(v),
+            hsplit(w.to(x.dtype)), p["u"].to(x.dtype))
+    spec = ("batch", hs, None)
+    s_new, o = A.local_call(
+        wkv_ops.wkv_step, args,
+        (("batch", hs, None, None),) + (spec,) * 4 + ((hs, None),),
+        (("batch", hs, None, None), spec))
     o = head_rmsnorm(o, p["ln_scale"])
     o = o.reshape(b, d)
     o = o * F.silu(g.to(torch.float32)).to(o.dtype)

@@ -23,6 +23,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..sharding import activations as A
+from ..sharding.activations import gather_fsdp, shard
 from ..tree import tree_leaves, tree_map
 from . import layers as L
 
@@ -140,27 +142,32 @@ def _apply_sublayer(sp, x, cfg: ModelConfig, sub: Sublayer, positions):
         y = L.mamba_apply(sp["mixer"], h, cfg)
     elif sub.mixer == "rwkv6":
         y, _ = L.rwkv6_time_mix(sp["mixer"]["time"], h, cfg)
-    x = x + y
+    # under a mesh each residual branch is reduced over ``model`` before
+    # it joins the (batch-split, model-replicated) stream
+    x = x + shard(y, "batch", None, None)
     h = L.norm_apply(sp["norm2"], x, cfg)
     if sub.ffn == "swiglu":
-        x = x + L.swiglu_apply(sp["ffn"], h)
+        y = L.swiglu_apply(sp["ffn"], h)
     elif sub.ffn == "moe":
-        x = x + L.moe_apply(sp["ffn"], h, cfg)
+        y = L.moe_apply(sp["ffn"], h, cfg)
         aux = L.moe_aux_loss(sp["ffn"], h, cfg)
     elif sub.ffn == "rwkv_channel":
         y, _ = L.rwkv6_channel_mix(sp["mixer"]["channel"], h)
-        x = x + y
-    return x, aux
+    return x + shard(y, "batch", None, None), aux
 
 
 def _apply_block(block, x, cfg: ModelConfig, subs, positions):
-    """Every sublayer of one block: (x, the block's aux loss or None)."""
+    """Every sublayer of one block: (x, the block's aux loss or None).
+    Under a mesh the block's weights are all-gathered over the FSDP axes
+    first (inside the remat, so its recompute gathers them again)."""
     aux = None
+    block = gather_fsdp(block)
+    x = shard(x, "batch", None, None)
     for j, sub in enumerate(subs):
         x, a = _apply_sublayer(block[f"sub{j}"], x, cfg, sub, positions)
         if a is not None:
             aux = a if aux is None else aux + a
-    return x, aux
+    return shard(x, "batch", None, None), aux
 
 
 def apply_blocks(params, x, cfg: ModelConfig, positions):
@@ -183,16 +190,42 @@ def apply_blocks(params, x, cfg: ModelConfig, positions):
     return x, aux
 
 
+def _embed_sharded(w, tokens):
+    """The token lookup, under a mesh on each rank's local rows of the
+    vocab-split table: a rank gives the rows of its vocab range and zeros
+    elsewhere, and the partial sums are reduced over ``model`` (exactly
+    one term is not zero).  A rank that holds the whole table looks up
+    plainly."""
+    split = w.shape[0] % A.axis_size("model") == 0
+    mesh = A.current_mesh()
+    rank = mesh.get_local_rank("model") if split and A.axis_size(
+        "model") > 1 else 0
+
+    def fn(wl, tok):
+        if wl.shape[0] == w.shape[0]:
+            return F.embedding(tok, wl)
+        local = tok - rank * wl.shape[0]
+        mine = (local >= 0) & (local < wl.shape[0])
+        out = F.embedding(torch.clamp(local, 0, wl.shape[0] - 1), wl)
+        return out * mine[..., None].to(out.dtype)
+
+    vs = "model" if split else None
+    return A.local_call(fn, (w, tokens), ((vs, None), ("batch", None)),
+                        ("batch", None, None), (A.batch_split_axes(), ()),
+                        out_partial=("model",) if split else ())
+
+
 def embed_inputs(params, cfg: ModelConfig, inputs):
     if cfg.input_mode == "tokens":
-        return F.embedding(inputs, params["embed"]["w"])
-    return inputs.to(L.param_dtype(cfg)) @ params["in_proj"]["w"]
+        return _embed_sharded(gather_fsdp(params["embed"]["w"]), inputs)
+    return inputs.to(L.param_dtype(cfg)) @ gather_fsdp(
+        params["in_proj"]["w"])
 
 
 def unembed(params, cfg: ModelConfig, h):
     if "lm_head" in params:
-        return h @ params["lm_head"]["w"]
-    return h @ params["embed"]["w"].T
+        return h @ gather_fsdp(params["lm_head"]["w"])
+    return h @ gather_fsdp(params["embed"]["w"]).T
 
 
 def forward(params, cfg: ModelConfig, inputs,
@@ -202,7 +235,7 @@ def forward(params, cfg: ModelConfig, inputs,
     s = inputs.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=inputs.device)
-    x = embed_inputs(params, cfg, inputs)
+    x = shard(embed_inputs(params, cfg, inputs), "batch", None, None)
     x, aux = apply_blocks(params, x, cfg, positions)
     return L.norm_apply(params["final_norm"], x, cfg), aux
 
@@ -227,9 +260,13 @@ def chunked_ce_loss(params, cfg: ModelConfig, h, labels):
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(s // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
-        logits = unembed(params, cfg, h[:, sl]).to(torch.float32)
+        logits = shard(unembed(params, cfg, h[:, sl]).to(torch.float32),
+                       "batch", None, "model")
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, sl, None].long())[..., 0]
+        # under a mesh the gather from vocab-split logits is a masked
+        # partial sum, reduced over ``model`` before the trailing dim goes
+        gold = shard(torch.gather(logits, -1, labels[:, sl, None].long()),
+                     "batch", None, None)[..., 0]
         total = total + torch.sum(logz - gold)
     return total / (b * s)
 
@@ -339,18 +376,17 @@ def _decode_sublayer(sp, cache, x, pos: int, cfg: ModelConfig,
         y, s_new, xt = L.rwkv6_time_mix_decode(
             sp["mixer"]["time"], h, cache["wkv"], cache["shift_t"], cfg)
         cache = dict(cache, wkv=s_new, shift_t=xt)
-    x = x + y
+    x = x + shard(y, "batch", None, None)
     h = L.norm_apply(sp["norm2"], x, cfg)
     if sub.ffn == "swiglu":
-        x = x + L.swiglu_apply(sp["ffn"], h)
+        y = L.swiglu_apply(sp["ffn"], h)
     elif sub.ffn == "moe":
-        x = x + L.moe_apply(sp["ffn"], h, cfg)
+        y = L.moe_apply(sp["ffn"], h, cfg)
     elif sub.ffn == "rwkv_channel":
         y, xc = L.rwkv6_channel_mix_decode(sp["mixer"]["channel"], h,
                                            cache["shift_c"])
         cache = dict(cache, shift_c=xc)
-        x = x + y
-    return x, cache
+    return x + shard(y, "batch", None, None), cache
 
 
 def serve_step(params, cfg: ModelConfig, cache, inputs, pos: int):
@@ -362,9 +398,10 @@ def serve_step(params, cfg: ModelConfig, cache, inputs, pos: int):
     so ``cache`` is spent: use the returned one.
     """
     subs = block_template(cfg)
-    x = embed_inputs(params, cfg, inputs)
+    x = shard(embed_inputs(params, cfg, inputs), "batch", None, None)
     new_cache = []
     for block, block_cache in zip(params["blocks"], cache):
+        block = gather_fsdp(block)
         new_block = {}
         for j, sub in enumerate(subs):
             x, new_block[f"sub{j}"] = _decode_sublayer(

@@ -13,8 +13,11 @@ scheme:
 The port has no ``jax.sharding.PartitionSpec``: a spec here is a
 :class:`PartitionSpec`, an immutable tuple with one entry per leading
 dim of its tensor (``None``, an axis name, or a tuple of names; trailing
-dims left out are replicated).  These are the tables the tensor-parallel
-slice turns into DTensor placements; nothing here places a tensor.
+dims left out are replicated).  :func:`placements` turns a spec into
+DTensor placements on a ``DeviceMesh``, and :func:`distribute_params` /
+:func:`distribute_cache` place a whole tree by these tables: this is
+where weights (``convert.transformer_params_from_jax``'s, say) are
+carried onto a mesh.
 
 Rules are keyed on weight-leaf names and applied by walking the port's
 param tree (``launch/train.py::abstract_params``) by key path.  The
@@ -34,7 +37,7 @@ import numpy as np
 
 from ..configs.base import ModelConfig
 from ..configs.shapes import InputShape
-from ..tree import tree_map_with_path
+from ..tree import tree_map, tree_map_with_path
 
 
 class PartitionSpec:
@@ -260,3 +263,47 @@ def cache_pspecs(cfg: ModelConfig, cache_shape, shape: InputShape,
         return P()
 
     return tree_map_with_path(spec_for, cache_shape)
+
+
+# ---------------------------------------------------------------------------
+# Placing trees on a mesh (DTensor) -------------------------------------------
+# ---------------------------------------------------------------------------
+def placements(spec: PartitionSpec, mesh):
+    """The DTensor placements of ``spec`` on ``mesh``, one per mesh dim:
+    ``Shard(i)`` on the mesh dims that entry ``i`` names (a tuple entry
+    such as ``("pod", "data")`` splits dim ``i`` over both, in the mesh's
+    dim order), ``Replicate()`` on the others.  An axis ``mesh`` lacks is
+    left out."""
+    from ..sharding.activations import placements_for
+    return placements_for(tuple(spec), mesh)
+
+
+def redistribute_to(x, mesh, spec: PartitionSpec):
+    """The DTensor ``x`` brought to ``spec``'s placements (itself where it
+    has them): a leaf a step replaced, back as its tree holds it."""
+    want = placements(spec, mesh)
+    return x if tuple(x.placements) == tuple(want) else x.redistribute(
+        mesh, want)
+
+
+def _distribute(tree, mesh, specs):
+    from torch.distributed.tensor import distribute_tensor
+    # every rank holds the full value: each keeps a copy of its own chunk
+    # (not a view: a donated step must not write into the caller's
+    # tensors), nothing is sent
+    return tree_map(lambda x, s: distribute_tensor(
+        x, mesh, placements(s, mesh), src_data_rank=None).clone(), tree,
+        specs)
+
+
+def distribute_params(params, mesh, pspecs):
+    """``params`` (one full copy on every rank, on the mesh's device) as
+    DTensors placed by ``pspecs`` (:func:`param_pspecs`): each rank keeps
+    its own shard of every leaf.  Every rank must pass the same values."""
+    return _distribute(params, mesh, pspecs)
+
+
+def distribute_cache(cache, mesh, cspecs):
+    """The decode cache as DTensors placed by ``cspecs``
+    (:func:`cache_pspecs`), as :func:`distribute_params` places params."""
+    return _distribute(cache, mesh, cspecs)

@@ -44,7 +44,8 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                  "optim.api", "analysis.contracts", "analysis.rules",
                  "analysis.__main__", "configs.paper_cnn", "launch.mesh",
                  "launch.op_analysis", "launch.dryrun", "kernels.region",
-                 "launch.spawn", "sharding", "sharding.specs"):
+                 "launch.spawn", "launch.gloo_probe", "sharding",
+                 "sharding.specs", "sharding.activations"):
         assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -296,18 +296,23 @@ def test_run_one_fl_step_counts_replicas_and_aggregate():
 
 def test_mesh_single_and_multi_wait_for_the_multi_device_slice(monkeypatch,
                                                                capsys):
-    """The (16, 16) and (2, 16, 16) meshes come with the tensor-parallel
-    slice of the multi-device work."""
-    for mesh in ("single", "multi"):
-        with pytest.raises(ValueError, match="tensor-parallel slice"):
-            dryrun.run_one("llama3.2-3b", "train_4k", mesh)
-        monkeypatch.setattr("sys.argv", ["dryrun", "--arch", "llama3.2-3b",
-                                         "--shape", "train_4k", "--mesh",
-                                         mesh])
-        with pytest.raises(SystemExit) as exit_:
-            dryrun.main()
-        assert exit_.value.code == 2
-        assert "tensor-parallel slice" in capsys.readouterr().err
+    """The (16, 16) and (2, 16, 16) meshes came with the tensor-parallel
+    slice: both are known meshes now, nothing waits, and an unknown mesh
+    still raises (the counts themselves: tests/test_torch_dryrun_mesh.py).
+    """
+    assert dryrun.MESHES == ("one", "single", "multi")
+    assert not hasattr(dryrun, "WAITING_MESHES")
+    with pytest.raises(ValueError, match="unknown mesh"):
+        dryrun.run_one("llama3.2-3b", "train_4k", "ring")
+    with pytest.raises(ValueError, match="multi-pod mesh"):
+        dryrun.run_one("llama3.2-3b", "train_4k", "single", fl_step=True)
+    monkeypatch.setattr("sys.argv", ["dryrun", "--arch", "llama3.2-3b",
+                                     "--shape", "train_4k", "--mesh",
+                                     "ring"])
+    with pytest.raises(SystemExit) as exit_:
+        dryrun.main()
+    assert exit_.value.code == 2
+    assert "invalid choice" in capsys.readouterr().err
 
 
 @pytest.fixture

@@ -27,15 +27,15 @@ GRAD_TOL = 1e-4
 BF16_GRAD_TOL = 2e-2
 
 
-def _inputs(b, h, t, d, seed, strong):
+def _inputs(b, h, t, d, seed, strong, k_scale=0.3, w_range=None):
     """``strong``: decays from [0, 0.999] and exactly 0 at every 5th step
-    of every 3rd channel; else from [0.7, 0.999]."""
+    of every 3rd channel; else from [0.7, 0.999], or from ``w_range``."""
     rng = np.random.default_rng(seed)
     r = rng.normal(size=(b, h, t, d)).astype(np.float32)
-    k = (rng.normal(size=(b, h, t, d)) * 0.3).astype(np.float32)
+    k = (rng.normal(size=(b, h, t, d)) * k_scale).astype(np.float32)
     v = rng.normal(size=(b, h, t, d)).astype(np.float32)
-    w = rng.uniform(0.0 if strong else 0.7, 0.999,
-                    size=(b, h, t, d)).astype(np.float32)
+    lo, hi = w_range or (0.0 if strong else 0.7, 0.999)
+    w = rng.uniform(lo, hi, size=(b, h, t, d)).astype(np.float32)
     if strong:
         w[:, :, ::5, ::3] = 0.0
     u = (rng.normal(size=(h, d)) * 0.1).astype(np.float32)
@@ -100,6 +100,29 @@ def test_chunked_backward_bf16_operands_within_card_limit():
     worst = _worst([g.float().numpy() for g in got], want, BF16_GRAD_TOL)
     print("share of the card's limit taken, by gradient:", worst)
     assert max(worst.values()) <= 0.5, worst
+
+
+def test_chunked_backward_bf16_operands_at_rwkv_activation_scale():
+    """As above at the scale of rwkv6-1.6b's own activations (|k| up to
+    ~5, decays from [0.99, 0.996]): a state ~30x the sweep's, and the
+    gradients as large, stay as far within the card's limit.  The output's
+    gradient must be the same bf16 values on both sides: left unrounded
+    on the f32 side, its rounding alone puts elements past the limit, as
+    it would for any bf16 kernel."""
+    arrays, dout = _inputs(1, 2, 256, 64, seed=11, strong=False,
+                           k_scale=1.3, w_range=(0.99, 0.996))
+    arrays = [torch.from_numpy(a).bfloat16() for a in arrays]
+    wide = [a.float().numpy() for a in arrays]
+    dout_bf16 = torch.from_numpy(dout).bfloat16()
+    got = ref.wkv_chunked_backward(*arrays, dout_bf16, split=True)
+    got = [g.float().numpy() for g in got]
+    want = _jax_grads(wide, dout_bf16.float().numpy())
+    assert max(float(np.abs(w).max()) for w in want) > 100
+    worst = _worst(got, want, BF16_GRAD_TOL)
+    print("share of the card's limit taken, by gradient:", worst)
+    assert max(worst.values()) <= 0.5, worst
+    unrounded = _worst(got, _jax_grads(wide, dout), BF16_GRAD_TOL)
+    assert max(unrounded.values()) > 1.0, unrounded
 
 
 def test_chunked_backward_split_changes_little_in_f32():
