@@ -98,6 +98,17 @@ Phases, each printed as one JSON object on its own line:
     round's flat buffer, timed; ``fedavg_agg`` at one shard's blocks of
     the round (weights summing to 1/2) against its plain version, timed as
     in phase 4.
+12c. ``examples``: every example of ``repro_torch.examples`` through its
+    ``main`` with a user's command line, one line a run with what it
+    printed: ``sagin_fl_end2end`` at its defaults (200 rounds, adaptive
+    then none: training time, best accuracy, time to 80 %; one
+    ``fedavg_agg`` launch a round; the first 3 rounds' plan cases and
+    training times equal to a CPU run's), ``--scenario multi_region
+    --global-model --rounds 6`` under each of the four federation
+    policies (one launch a region-round and one a merge), ``--scenario
+    degraded_links --rounds 3``, ``quickstart``,
+    ``offloading_walkthrough``, ``multiarch_demo`` over all ten configs
+    and ``serve_demo`` for llama3.2-3b and internvl2-1b.
 13. ``transformer_prefill``: full-width ``llama3.2-3b`` (random bf16
     weights from a seed), ``make_prefill_step`` on B = 4 sequences of
     2048 tokens: one ``flash_attention`` launch per layer (28), finite
@@ -105,8 +116,9 @@ Phases, each printed as one JSON object on its own line:
     under ``torch.profiler``.
 14. ``transformer_decode``: the same model behind ``TransformerBackend``
     (seq_len 2048) answering batches of 8 requests: per-token latency.
-15. ``decode_vs_prefill``: the same model in float32 (TF32 off), B = 1:
-    the prefill's logits at all 256 positions (through the kernel)
+15. ``decode_vs_prefill``: the same model in float32 (TF32 off), B = 1,
+    cut to 8 layers: the prefill's logits at all 256 positions (through
+    the kernel)
     against 256 plain ``serve_step``s; then full-width ``rwkv6-1.6b``
     the same way over 64 positions (prefill through ``wkv6``, decode
     through the plain ``wkv_step``).
@@ -142,10 +154,29 @@ Phases, each printed as one JSON object on its own line:
 16f. ``hybrid_decode_vs_prefill``: jamba cut to 2 layers (GQA + dense
     FFN, Mamba + MoE FFN) in float32, B = 1, 256 positions (four scan
     chunks), capacity factor 2: decode within 1e-3 of prefill.
+16g. ``dense_prefill``: ``make_prefill_step`` on the five configs of
+    ``DENSE`` at full width (random bf16 weights from seed 0): olmo-1b,
+    internvl2-1b and musicgen-medium at full depth, qwen3-32b and
+    deepseek-coder-33b at 8 layers (``CUTS``); B = 4 x 2048 tokens, or
+    embeddings for internvl2-1b and musicgen-medium: one
+    ``flash_attention`` launch a layer, finite logits, wall, tokens/s,
+    peak memory, the busy share and the profile's groups.
+16h. ``dense_decode``: each of them decoding 8 requests a step over a
+    2048 cache: the token configs behind ``TransformerBackend``, the
+    embeddings ones through ``serve_step`` on zero embeddings after a
+    16-position prompt; per-token latency, busy share.
+16i. ``dense_decode_vs_prefill``: each at 2 layers in float32 over 256
+    positions, decode within 1e-3 of prefill; then
+    ``window_decode_vs_prefill`` (``WINDOW_CHECK``): olmo-1b at 2 layers
+    with its window set to 256, the windowed prefill through the kernel
+    against 1024 decode steps over a 256-position ring.
 17. ``flash_kernel`` / ``wkv_kernel``: each kernel against its plain
     version on the card at the shapes the main paths gave it (in their
     bf16 and in f32; for attention also qwen3-moe's q 4 x 64 x 2048 x
-    128 over 4 KV heads and jamba's over 8, with the elements past
+    128 over 4 KV heads and jamba's over 8, and ``DENSE_KERNEL_SHAPES``:
+    deepseek-coder-33b's 56 over 8 and internvl2-1b's 14 over 2 at head
+    dims 128 and 64 (GQA groups of 7), musicgen-medium's 24 and olmo-1b's
+    16 heads (MHA) at 64 and 128, with the elements past
     tolerance of the kernel and of the library call) and over the
     reference's sweep, f32 and bf16, with
     decays from [0.7, 0.999] and (wkv) also from [0, 0.999] with exact
@@ -174,9 +205,12 @@ Phases, each printed as one JSON object on its own line:
     qwen3-moe-235b-a22b at 4 layers (``flash_attention`` and its
     backward at a GQA group of 16).
 19b. ``hybrid_train``: the same for jamba's block (``CUTS``) at B = 1 x
-    2048 (``HYBRID_TRAIN_BATCH``): the attention kernels at a GQA group
+    2048 (``HYBRID_TRAIN_BATCH``; no profiled step, ``PROFILE_SKIP``):
+    the attention kernels at a GQA group
     of 8, the chunked scan's checkpoints inside the block's; at 2 layers
     the gradients and stepped loss against the plain versions.
+19c. ``dense_train``: the same for each of ``DENSE``, qwen3-32b and
+    deepseek-coder-33b at 4 layers (``DENSE_TRAIN_LAYERS``).
 20. ``fl_train_step``: ``make_fl_train_step`` on full-width llama3.2-3b,
     2 replicas, ``h_local`` = 2, 2 x 2048 tokens a replica, 2 rounds:
     one ``fedavg_agg`` launch a round, the aggregate against
@@ -198,8 +232,9 @@ Phases, each printed as one JSON object on its own line:
     backward a local step.
 21. ``flash_backward_kernel`` / ``wkv_backward_kernel``: each backward
     kernel against autograd through its plain version (f32, on the same
-    input values) at the training shapes (attention also at qwen3-moe's
-    and jamba's in bf16), bf16 and f32 (wkv with decays
+    input values) at the training shapes (attention also at qwen3-moe's,
+    jamba's and ``DENSE_KERNEL_SHAPES`` in bf16), bf16 and f32 (wkv with
+    decays
     down to 0), with times beside the plain version's backward and, for
     attention, ``scaled_dot_product_attention``'s backward, and
     ``bound_ms``.  For attention also: the forward's log-sum-exp against
@@ -229,7 +264,7 @@ Phases, each printed as one JSON object on its own line:
     process: ``status: ok``, all-gather and all-reduce bytes, and
     olmo-1b's per-device FLOPs x 256 over its one-device count in
     [0.99, 2.0].
-22. ``roofline``: every prefill and train step whose wall phases 13-19b
+22. ``roofline``: every prefill and train step whose wall phases 13-19c
     measured (but those in ``ROOFLINE_SKIP``), counted on the ``meta``
     device by ``repro_torch.launch.dryrun.run_one`` at the same config,
     depth and shape: FLOPs, bytes, the bound (the larger of the compute
@@ -243,10 +278,10 @@ that line.
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after; ``fedavg_agg``'s count in the kernel
-line sums its paths (phases 2, 2a, 8, 9, 11, 12, 12a, 12b, 20,
+line sums its paths (phases 2, 2a, 8, 9, 11, 12, 12a, 12b, 12c, 20,
 20-mesh, 20a and 20b; the spawned ranks count their own), the
 attention and wkv counts theirs (prefill, training, the FL steps, the
-sharded steps).  Then a
+sharded steps, the examples).  Then a
 ``{"kernels": [...]}`` line and, last, the device line.  Any failed phase, a missing CUDA
 device, or a directory without the rest of the repository gives a
 non-zero exit and no result line.
@@ -294,9 +329,14 @@ ROOFLINE_SHARE_LIMIT = 1.05
 # Steps measured but not counted by the roofline phase, to keep the run
 # inside its time: jamba's train step took 45.5 s of host time to count
 # (its chunked scans dispatch tens of thousands of small ops), more than
-# half the phase (NVIDIA H100 80GB HBM3 at 700 W); its
-# prefill is still counted
-ROOFLINE_SKIP = {("jamba-1.5-large-398b", "train")}
+# half the phase, and rwkv6-1.6b's 18.8-25.7 s (its time mix's many
+# small ops; NVIDIA H100 80GB HBM3 at 700 W); their prefills are still
+# counted
+ROOFLINE_SKIP = {("jamba-1.5-large-398b", "train"), ("rwkv6-1.6b", "train")}
+# Train steps measured without the profiled step: jamba's, tens of
+# thousands of small kernels (its chunked scans), is slow to trace; its
+# busy share (32 %) was measured before
+PROFILE_SKIP = {"jamba-1.5-large-398b"}
 
 
 # the host clock at the start of the running phase (``_run``)
@@ -714,15 +754,31 @@ def _bound(nbytes, ops, dtype_name):
             "bytes": nbytes, "ops": ops}
 
 
+def _reps(fn, big: bool):
+    """(reps, repeats) to time ``fn`` with: fewer calls for a case that
+    moves many bytes (``big``) or whose one call takes over 2 ms of host
+    time (a plain version that loops in Python, as the per-step wkv
+    scan)."""
+    import torch
+    if big:
+        return 4, 3
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (4, 3) if time.perf_counter() - t0 > 2e-3 else (20, 5)
+
+
 def _times(fns: dict, big: bool) -> dict:
     """CUDA-graph (card) and eager times of each callable in ``fns``;
-    fewer calls for a case that takes milliseconds."""
-    reps, repeats = (4, 3) if big else (20, 5)
+    fewer calls for a case that takes milliseconds (``_reps``)."""
     out = {}
     for key, fn in fns.items():
         if fn is None:
             out[f"{key}_ms"] = out[f"{key}_eager_ms"] = None
             continue
+        reps, repeats = _reps(fn, big)
         t = time_ms(fn, reps=reps, repeats=repeats)
         out[f"{key}_ms"], out[f"{key}_eager_ms"] = t["device"], t["eager"]
     return out
@@ -1547,6 +1603,25 @@ def _groups(by_name):
                                for name, t in ms.items()}}
 
 
+def _model_inputs(cfg, lead, seq, gen):
+    """Random inputs of ``lead`` + (seq,) positions on the card: tokens,
+    or for an embeddings config (a modality frontend's output) unit
+    normal embeddings of width d_model."""
+    import torch
+    if cfg.input_mode == "tokens":
+        return torch.randint(0, cfg.vocab_size, (*lead, seq), generator=gen,
+                             device="cuda")
+    return torch.randn((*lead, seq, cfg.d_model), generator=gen,
+                       device="cuda")
+
+
+def _attention_shape(cfg, batch, seq):
+    """The shape ``flash_attention`` gets from ``cfg`` at ``batch`` x
+    ``seq``: q's, the KV heads and the window."""
+    return {"q": (batch, cfg.n_heads, seq, cfg.head_dim),
+            "kv_heads": cfg.n_kv_heads, "window": cfg.sliding_window}
+
+
 def _prefill_run(launchers, cfg, batch, seq, needle):
     """Full-width prefill of ``cfg`` (random weights from seed 0) through
     ``make_prefill_step``: one warm-up call, then the counted call and a
@@ -1561,8 +1636,7 @@ def _prefill_run(launchers, cfg, batch, seq, needle):
     init_s = time.perf_counter() - t0
     prefill = make_prefill_step(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    batch_in = {"inputs": torch.randint(0, cfg.vocab_size, (batch, seq),
-                                        generator=gen, device="cuda")}
+    batch_in = {"inputs": _model_inputs(cfg, (batch,), seq, gen)}
     prefill(params, batch_in)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1601,9 +1675,7 @@ def phase_transformer_prefill(launchers, batch=4, seq=2048):
     if not ok:
         raise RuntimeError("llama3.2-3b prefill: flash_attention launches "
                            "!= n_layers or non-finite logits")
-    return counts["flash_attention"], {
-        "q": (batch, cfg.n_heads, seq, cfg.head_dim),
-        "kv_heads": cfg.n_kv_heads, "window": cfg.sliding_window}
+    return counts["flash_attention"], _attention_shape(cfg, batch, seq)
 
 
 # The MoE configs at full width, and the depth their prefill runs at
@@ -1686,9 +1758,7 @@ def phase_moe_prefill(launchers, batch=4, seq=2048):
                                f"flash_attention launches != {want}")
         launches += counts["flash_attention"]
         if want:
-            shape = {"q": (batch, cfg.n_heads, seq, cfg.head_dim),
-                     "kv_heads": cfg.n_kv_heads,
-                     "window": cfg.sliding_window}
+            shape = _attention_shape(cfg, batch, seq)
     return launches, shape
 
 
@@ -1811,9 +1881,7 @@ def phase_hybrid_prefill(launchers, batch=4, seq=2048):
                            f"flash_attention launches != {want} or others "
                            f"launched, or the chunked scan apart from the "
                            f"per-step one")
-    return counts["flash_attention"], {
-        "q": (batch, cfg.n_heads, seq, cfg.head_dim),
-        "kv_heads": cfg.n_kv_heads, "window": cfg.sliding_window}
+    return counts["flash_attention"], _attention_shape(cfg, batch, seq)
 
 
 def phase_transformer_decode(launchers, name="llama3.2-3b",
@@ -1874,7 +1942,7 @@ DECODE_VS_PREFILL_TOL = 1e-3
 
 
 def _decode_vs_prefill(launchers, name, kernel, seq, n_layers=None,
-                       phase="decode_vs_prefill"):
+                       phase="decode_vs_prefill", **changes):
     """Full-width ``name`` in float32, B = 1, at its own depth or cut to
     ``n_layers``: the prefill's logits at all ``seq`` positions (through
     ``kernel``, one launch a layer that runs it; ``None``: no kernel on
@@ -1887,11 +1955,12 @@ def _decode_vs_prefill(launchers, name, kernel, seq, n_layers=None,
     import torch
     from repro_torch.launch.serve import make_serve_step
     from repro_torch.models import transformer as T
-    cfg = _config(name, n_layers, param_dtype="float32")
+    cfg = _config(name, n_layers, param_dtype="float32", **changes)
     if cfg.n_experts:
         cfg = _config(name, n_layers, param_dtype="float32",
                       capacity_factor=float(-(-cfg.n_experts
-                                              // cfg.n_experts_active)))
+                                              // cfg.n_experts_active)),
+                      **changes)
     backends = torch.backends
     saved = (backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32)
     backends.cuda.matmul.allow_tf32 = False
@@ -1899,8 +1968,7 @@ def _decode_vs_prefill(launchers, name, kernel, seq, n_layers=None,
     try:
         params = T.init_params(cfg, seed=1, device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(1)
-        tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
-                               device="cuda")
+        tokens = _model_inputs(cfg, (1,), seq, gen)
         set_counts(launchers)
         with torch.no_grad():
             full, _ = T.logits_fn(params, cfg, tokens)
@@ -1926,6 +1994,9 @@ def _decode_vs_prefill(launchers, name, kernel, seq, n_layers=None,
     emit({"phase": phase, "ok": ok, "config": cfg.name,
           "n_layers": cfg.n_layers, "dtype": "float32", "tf32": False,
           "capacity_factor": cfg.capacity_factor if cfg.n_experts else None,
+          "sliding_window": cfg.sliding_window,
+          "cache_positions": int(cache[0]["sub0"]["k"].shape[2])
+          if "k" in cache[0]["sub0"] else None,
           "seq_len": seq,
           "max_abs_err": err, "tolerance": DECODE_VS_PREFILL_TOL,
           "max_abs_logit": scale, "decode_s": decode_s,
@@ -1957,7 +2028,9 @@ def phase_hybrid_decode_vs_prefill(launchers):
 
 
 def phase_decode_vs_prefill(launchers):
-    """llama3.2-3b over 256 positions, then rwkv6-1.6b over 64.
+    """llama3.2-3b at 8 layers over 256 positions (the decode steps,
+    host-bound, took 23 s at all 28 on an NVIDIA H100 at 700 W), then
+    rwkv6-1.6b over 64.
 
     rwkv6-1.6b runs 2 of its 24 layers: with random weights its layers
     amplify a rounding difference with depth (at all 24 layers decode
@@ -1965,10 +2038,9 @@ def phase_decode_vs_prefill(launchers):
     on the CPU, with no kernel, widens the same way), so a cut depth
     holds the kernel to a tolerance that a wrong kernel would miss."""
     cfg = _decode_vs_prefill(launchers, "llama3.2-3b", "flash_attention",
-                             256)
+                             256, n_layers=8)
     _decode_vs_prefill(launchers, "rwkv6-1.6b", "wkv6", 64, n_layers=2)
-    return {"q": (1, cfg.n_heads, 256, cfg.head_dim),
-            "kv_heads": cfg.n_kv_heads, "window": cfg.sliding_window}
+    return _attention_shape(cfg, 1, 256)
 
 
 def _prefill_decays(cfg, params, batch, seq):
@@ -2104,13 +2176,23 @@ FLASH_SWEEP = [((1, 2, 128, 32), 2), ((2, 4, 256, 64), 2),
                ((2, 4, 200, 64), 2)]
 
 
+def _dense_cases(case_fn, dense_shapes, seed):
+    """``case_fn`` in bf16 at each of ``DENSE_KERNEL_SHAPES``'s attention
+    shapes, by config name."""
+    return {name: case_fn(dense_shapes[name]["q"],
+                          dense_shapes[name]["kv_heads"],
+                          dense_shapes[name]["window"], "bfloat16", seed + i)
+            for i, name in enumerate(DENSE_KERNEL_SHAPES)}
+
+
 def phase_flash_kernel(fa_kernel, fa_ref, prefill_shapes, f32_shapes,
-                       moe_shapes, hybrid_shapes):
+                       moe_shapes, hybrid_shapes, dense_shapes):
     """The main path's shape in bf16 (as it runs) and in f32 (a tight
     check over its 32 KV tiles), the f32 ``decode_vs_prefill`` shape,
     qwen3-moe's and jamba's prefill shapes in bf16 (GQA groups of 16 and
-    8 at head dim 128), and the reference's sweep; the plain version's
-    f32 einsums with TF32 off."""
+    8 at head dim 128), ``DENSE_KERNEL_SHAPES`` in bf16 (groups of 7 and
+    1 at head dims 64 and 128), and the reference's sweep; the plain
+    version's f32 einsums with TF32 off."""
     import torch
     main = (prefill_shapes["q"], prefill_shapes["kv_heads"],
             prefill_shapes["window"])
@@ -2132,7 +2214,10 @@ def phase_flash_kernel(fa_kernel, fa_ref, prefill_shapes, f32_shapes,
                  "jamba": _flash_case(
                      fa_kernel, fa_ref, hybrid_shapes["q"],
                      hybrid_shapes["kv_heads"], hybrid_shapes["window"],
-                     "bfloat16", 3)}
+                     "bfloat16", 3),
+                 **_dense_cases(lambda *a: _flash_case(fa_kernel, fa_ref,
+                                                       *a),
+                                dense_shapes, 4)}
         for i, (q_shape, hkv) in enumerate(FLASH_SWEEP):
             for window in (None, 64):
                 for dtype_name in ("float32", "bfloat16"):
@@ -2272,7 +2357,9 @@ def _wkv_backward_variant(dtype_name, d):
 # (11.629, 11.039, 10.495, 10.007; NVIDIA H100 at 700 W)
 TRAIN_LR = {"llama3.2-3b": 0.03, "rwkv6-1.6b": 1e-4,
             "deepseek-v2-lite-16b": 0.03, "qwen3-moe-235b-a22b": 0.03,
-            "jamba-1.5-large-398b": 0.003}
+            "jamba-1.5-large-398b": 0.003, "olmo-1b": 0.03,
+            "internvl2-1b": 0.03, "musicgen-medium": 0.03,
+            "qwen3-32b": 0.03, "deepseek-coder-33b": 0.03}
 # One train step's gradients at full width and 2 layers, through the
 # kernels and through the plain versions (autograd through ref on the
 # card), from the same params and batch.  float32 (TF32 off): each leaf
@@ -2322,17 +2409,14 @@ def _backward_times(kernel_fn, plain_fn, library_fn, big):
     and eager calls); the plain version's and the library call's
     backward (``torch.autograd.grad`` over a kept graph) as eager calls
     timed with CUDA events."""
-    import torch
-    reps, repeats = (4, 3) if big else (20, 5)
     out = _times({"kernel": kernel_fn}, big)
     for key, fn in (("plain", plain_fn), ("library", library_fn)):
         if fn is None:
             out[f"{key}_ms"] = None
             continue
-        fn()
-        torch.cuda.synchronize()
+        reps, repeats = _reps(fn, big)
 
-        def run(fn=fn):
+        def run(fn=fn, reps=reps):
             for _ in range(reps):
                 fn()
         out[f"{key}_ms"] = _event_ms(run, repeats) / reps
@@ -2454,11 +2538,13 @@ def _flash_backward_case(fa_kernel, fa_ref, q_shape, hkv, window,
 
 
 def phase_flash_backward_kernel(fa_kernel, fa_ref, train_shapes,
-                                moe_shapes, hybrid_shapes):
+                                moe_shapes, hybrid_shapes, dense_shapes):
     """The llama3.2-3b training shape in bf16 (as it runs) and in f32,
     qwen3-moe's training shape and jamba's prefill shape in bf16 (GQA
-    groups of 16 and 8 at head dim 128), and a ragged windowed case; the
-    plain version's f32 einsums with TF32 off."""
+    groups of 16 and 8 at head dim 128), ``DENSE_KERNEL_SHAPES`` in bf16
+    (the five configs' training shapes: groups of 7 and 1 at head dims
+    64 and 128), and a ragged windowed case; the plain version's f32
+    einsums with TF32 off."""
     import torch
     main = (train_shapes["q"], train_shapes["kv_heads"],
             train_shapes["window"])
@@ -2476,7 +2562,10 @@ def phase_flash_backward_kernel(fa_kernel, fa_ref, train_shapes,
                  "jamba": _flash_backward_case(
                      fa_kernel, fa_ref, hybrid_shapes["q"],
                      hybrid_shapes["kv_heads"], hybrid_shapes["window"],
-                     "bfloat16", 3)}
+                     "bfloat16", 3),
+                 **_dense_cases(
+                     lambda *a: _flash_backward_case(fa_kernel, fa_ref, *a),
+                     dense_shapes, 4)}
         for dtype_name in ("float32", "bfloat16"):
             cases[f"ragged-64-{dtype_name}"] = _flash_backward_case(
                 fa_kernel, fa_ref, (2, 4, 200, 64), 2, 64, dtype_name, 1)
@@ -2605,9 +2694,15 @@ def phase_wkv_backward_kernel(wkv_kernel, wkv_ref, main_shape):
 
 
 def _train_batch(cfg, lead, seq, seed=0):
-    """Random next-token batch of ``lead`` + (seq,) tokens on the card."""
+    """Random next-token batch of ``lead`` + (seq,) tokens on the card;
+    for an embeddings config, random embeddings and random labels."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.input_mode != "tokens":
+        inputs = _model_inputs(cfg, lead, seq, gen)
+        return {"inputs": inputs,
+                "labels": torch.randint(0, cfg.vocab_size, (*lead, seq),
+                                        generator=gen, device="cuda")}
     tokens = torch.randint(0, cfg.vocab_size, (*lead, seq + 1),
                            generator=gen, device="cuda")
     return {"inputs": tokens[..., :-1].contiguous(),
@@ -2796,7 +2891,8 @@ def _train_phase(launchers, phase, name, kernels, batch=4, seq=2048,
                            "wall_s": statistics.median(walls[1:])})
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_params = sum(t.numel() for t in tree_leaves(params))
-    prof_wall, by_name = _profile(lambda: step(params, data))
+    prof_wall, by_name = ((0.0, {}) if name in PROFILE_SKIP
+                          else _profile(lambda: step(params, data)))
     del params
     _free()
     ok = (all(math.isfinite(x) for x in losses + aux)
@@ -2841,9 +2937,7 @@ def phase_transformer_train(launchers):
     cfg = get_config("llama3.2-3b")
     counts = _train_phase(launchers, "transformer_train", "llama3.2-3b",
                           ("flash_attention", "flash_attention_backward"))
-    return counts, {"q": (4, cfg.n_heads, 2048, cfg.head_dim),
-                    "kv_heads": cfg.n_kv_heads,
-                    "window": cfg.sliding_window}
+    return counts, _attention_shape(cfg, 4, 2048)
 
 
 def phase_rwkv6_train(launchers):
@@ -2869,9 +2963,7 @@ def phase_moe_train(launchers):
                               n_layers=n_layers)
         total = {k: total.get(k, 0) + n for k, n in counts.items()}
         if kernels:
-            shape = {"q": (4, cfg.n_heads, 2048, cfg.head_dim),
-                     "kv_heads": cfg.n_kv_heads,
-                     "window": cfg.sliding_window}
+            shape = _attention_shape(cfg, 4, 2048)
     return total, shape
 
 
@@ -2887,6 +2979,162 @@ def phase_hybrid_train(launchers):
     return _train_phase(launchers, "hybrid_train", HYBRID,
                         ("flash_attention", "flash_attention_backward"),
                         batch=HYBRID_TRAIN_BATCH)
+
+
+# ---------------------------------------------------------------------------
+# The five dense and embeddings configs: olmo-1b, internvl2-1b,
+# musicgen-medium at full depth, qwen3-32b and deepseek-coder-33b cut
+# ---------------------------------------------------------------------------
+# Each at full width with random bf16 weights from seed 0.  olmo-1b (16
+# layers, MHA at head dim 128, non-parametric LayerNorm), internvl2-1b (24,
+# GQA 14 / 2 at head dim 64, embeddings input) and musicgen-medium (48, MHA
+# 24 / 24 at head dim 64, embeddings input) run at full depth.
+# qwen3-32b (64 / 8 heads, qk-norm; ~0.49 B params a layer and 0.78 B in
+# each of its embedding and head) and deepseek-coder-33b (56 / 8: a GQA
+# group of 7; ~0.53 B a layer) run 8 layers for prefill and decode and 4
+# for training (``DENSE_TRAIN_LAYERS``), which keeps the phases inside the
+# script's time; the depth is a loop over identical blocks
+DENSE = ("olmo-1b", "internvl2-1b", "musicgen-medium", "qwen3-32b",
+         "deepseek-coder-33b")
+CUTS.update({"qwen3-32b": {"n_layers": 8},
+             "deepseek-coder-33b": {"n_layers": 8}})
+DENSE_TRAIN_LAYERS = {"qwen3-32b": 4, "deepseek-coder-33b": 4}
+# Each new attention shape the kernels get at full size: a GQA group of 7
+# at head dim 128 and at 64, MHA at 64 and at 128 (qwen3-32b's 64 / 8 is
+# jamba's, already held)
+DENSE_KERNEL_SHAPES = ("deepseek-coder-33b", "internvl2-1b",
+                       "musicgen-medium", "olmo-1b")
+# A window the decode ring wraps: olmo-1b at 2 layers in float32, its
+# 8192 window set to 256 over 1024 positions (a 2048 cache never wraps at
+# the configs' own 8192)
+WINDOW_CHECK = {"name": "olmo-1b", "n_layers": 2, "sliding_window": 256,
+                "seq": 1024}
+
+
+def phase_dense_prefill(launchers, batch=4, seq=2048):
+    """``make_prefill_step`` on each of ``DENSE`` (with its ``CUTS``),
+    B = 4 x 2048: finite logits, one ``flash_attention`` launch a layer
+    and no other kernel; wall, tokens/s, peak memory, the busy share and
+    the profile's groups.  Returns the launches and each config's
+    attention shape."""
+    launches, shapes = 0, {}
+    for name in DENSE:
+        cfg = _config(name)
+        rec, counts, ok = _prefill_run(launchers, cfg, batch, seq,
+                                       "flash_attention")
+        want = _attention_layers(cfg)
+        ok = ok and counts["flash_attention"] == want == cfg.n_layers and all(
+            n == 0 for k, n in counts.items() if k != "flash_attention")
+        emit({"phase": "dense_prefill", "ok": ok, "n_layers": cfg.n_layers,
+              "full_depth": _full_depth(cfg), "input_mode": cfg.input_mode,
+              "heads": [cfg.n_heads, cfg.n_kv_heads],
+              "head_dim": cfg.head_dim, **rec})
+        if not ok:
+            raise RuntimeError(f"{name} prefill: non-finite logits, or "
+                               f"flash_attention launches != {want}")
+        launches += counts["flash_attention"]
+        shapes[name] = _attention_shape(cfg, batch, seq)
+    return launches, shapes
+
+
+def _embeddings_decode(launchers, name, phase, batch=8, steps=32,
+                       prompt=16, cache_len=2048):
+    """``name`` (an embeddings config: no token ids to serve, so not
+    behind ``TransformerBackend``) through ``make_serve_step`` over a
+    ``cache_len`` cache: ``prompt`` random embeddings one step each, 3
+    warm-up steps, then ``steps`` timed steps on zero embeddings, as
+    ``examples/serve_demo.py`` generates; per-token latency."""
+    import torch
+    from repro_torch.launch.serve import make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cfg = _config(name)
+    params = T.init_params(cfg, seed=0, device="cuda")
+    step = make_serve_step(cfg)
+    cache = T.init_cache(cfg, batch, cache_len, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = _model_inputs(cfg, (batch,), prompt, gen)
+    zeros = torch.zeros((batch, 1, cfg.d_model), device="cuda")
+    pos = 0
+    for pos in range(prompt):
+        logits, cache = step(params, cache, x[:, pos:pos + 1], pos)
+    for pos in range(prompt, prompt + 3):
+        logits, cache = step(params, cache, zeros, pos)
+    torch.cuda.synchronize()
+    set_counts(launchers)
+    lat = []
+    for pos in range(prompt + 3, prompt + 3 + steps):
+        t0 = time.perf_counter()
+        logits, cache = step(params, cache, zeros, pos)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    counts = read_counts(launchers)
+    finite = bool(torch.isfinite(logits).all())
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(cache))
+    pos += 1
+
+    def one():
+        step(params, cache, zeros, pos)
+    wall_ms, by_name = _profile(one)
+    ok = finite and all(n == 0 for n in counts.values())
+    emit({"phase": phase, "ok": ok, "config": cfg.name,
+          "n_layers": cfg.n_layers, "batch": batch, "seq_len": cache_len,
+          "prompt": prompt, "steps": steps, "input": "embeddings, zeros "
+          "after the prompt",
+          "per_token_ms_median": statistics.median(lat) * 1e3,
+          "per_token_ms_mean": statistics.mean(lat) * 1e3,
+          "per_token_ms_max": max(lat) * 1e3,
+          "tokens_per_s": batch / statistics.median(lat),
+          "cache_gib": cache_bytes / 2**30, "logits_finite": finite,
+          "logits_shape": list(logits.shape), "launches": counts,
+          "profiled_step": _share(by_name, wall_ms)})
+    del params, cache, logits
+    _free()
+    if not ok:
+        raise RuntimeError(f"{name} decode: non-finite logits or a kernel "
+                           f"launched")
+
+
+def phase_dense_decode(launchers):
+    """Each of ``DENSE`` decoding 8 requests a step over a 2048 cache:
+    the token configs behind ``TransformerBackend``, the embeddings ones
+    through ``serve_step``."""
+    for name in DENSE:
+        if _config(name).input_mode == "tokens":
+            phase_transformer_decode(launchers, name, "dense_decode")
+        else:
+            _embeddings_decode(launchers, name, "dense_decode")
+
+
+def phase_dense_decode_vs_prefill(launchers):
+    """Each of ``DENSE`` in float32 at 2 layers over 256 positions
+    (embeddings configs fed embeddings at every position), then
+    ``WINDOW_CHECK``: the windowed prefill through the kernel against
+    1024 decode steps over a 256-position ring."""
+    for name in DENSE:
+        _decode_vs_prefill(launchers, name, "flash_attention", 256,
+                           n_layers=2, phase="dense_decode_vs_prefill")
+    w = WINDOW_CHECK
+    _decode_vs_prefill(launchers, w["name"], "flash_attention", w["seq"],
+                       n_layers=w["n_layers"],
+                       phase="window_decode_vs_prefill",
+                       sliding_window=w["sliding_window"])
+
+
+def phase_dense_train(launchers):
+    """``_train_phase`` on each of ``DENSE`` (full depth, or
+    ``DENSE_TRAIN_LAYERS``): 3 SGD steps of 4 x 2048 with remat, two
+    ``flash_attention`` launches and one backward a layer a step, and at
+    2 layers the gradients and stepped loss against the plain versions.
+    Returns the launches summed."""
+    total = {}
+    for name in DENSE:
+        counts = _train_phase(launchers, "dense_train", name,
+                              ("flash_attention", "flash_attention_backward"),
+                              n_layers=DENSE_TRAIN_LAYERS.get(name))
+        total = {k: total.get(k, 0) + n for k, n in counts.items()}
+    return total
 
 
 def _row_slices(leaf, most=1 << 26):
@@ -3819,6 +4067,139 @@ def phase_dryrun_mesh():
                            "[0.99, 2.0]")
 
 
+# ---------------------------------------------------------------------------
+# The port's own entry points (repro_torch.examples), as a user runs them
+# ---------------------------------------------------------------------------
+EXAMPLE_POLICIES = ("synchronous", "elected_hub", "partial", "soft_async")
+
+
+def _quiet(main, argv):
+    """An example's ``main(argv)``, its printed lines kept out of this log
+    (the result holds them)."""
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return main(argv)
+
+
+def _example(launchers, main, argv):
+    """An example's ``main(argv)`` with every count from 0: its result, the
+    counts and the host wall."""
+    import torch
+    set_counts(launchers)
+    t0 = time.perf_counter()
+    out = _quiet(main, argv)
+    torch.cuda.synchronize()
+    return out, read_counts(launchers), time.perf_counter() - t0
+
+
+def _finite(values):
+    return len(values) > 0 and all(math.isfinite(v) for v in values)
+
+
+def phase_examples(launchers):
+    """Each example of ``repro_torch.examples`` on the card through its
+    ``main`` with a user's command line: ``sagin_fl_end2end`` at its
+    defaults (200 rounds, adaptive then none; one ``fedavg_agg`` launch a
+    round; the first 3 rounds' plan cases and training times as a CPU
+    run's), ``--scenario multi_region --global-model --rounds 6`` under
+    each federation policy (one launch a region-round and one a merge),
+    ``--scenario degraded_links --rounds 3``, ``quickstart``,
+    ``offloading_walkthrough``, ``multiarch_demo`` over all ten configs
+    and ``serve_demo`` for llama3.2-3b and internvl2-1b.  One line a run,
+    with the lines the example printed.  Returns the launches summed."""
+    from repro_torch.examples import (multiarch_demo, offloading_walkthrough,
+                                      quickstart, sagin_fl_end2end,
+                                      serve_demo)
+    total = {k: 0 for k in launchers}
+    bad = []
+
+    def report(example, argv, out, counts, wall, ok, **extra):
+        for k, n in counts.items():
+            total[k] += n
+        emit({"phase": "examples", "example": example, "argv": argv,
+              "ok": ok, "wall_s": wall, "launches": counts, **extra,
+              "lines": out["lines"]})
+        if not ok:
+            bad.append(f"{example} {' '.join(argv)}")
+
+    def fl_summary(res):
+        return {"rounds": len(res.accuracies),
+                "training_time_s": res.times[-1],
+                "best_acc": max(res.accuracies),
+                "time_to_80_s": res.time_to_accuracy(0.8),
+                "cases_used": sorted(set(res.cases))}
+
+    # the paper's comparison at the example's defaults, then its first 3
+    # rounds on the CPU: the plan is the control plane's, device-free
+    argv = []
+    out, counts, wall = _example(launchers, sagin_fl_end2end.main, argv)
+    res = out["results"]
+    cpu = _quiet(sagin_fl_end2end.main,
+                 ["--rounds", "3", "--device", "cpu"])["results"]
+    same_plan = all(cpu[s].cases == res[s].cases[:3]
+                    and cpu[s].times == res[s].times[:3] for s in cpu)
+    rounds = 200
+    ok = (sorted(res) == ["adaptive", "none"]
+          and all(len(r.accuracies) == rounds and _finite(r.accuracies)
+                  for r in res.values())
+          and counts["fedavg_agg"] == 2 * rounds and same_plan)
+    report("sagin_fl_end2end", argv, out, counts, wall, ok,
+           first_3_rounds_as_cpu=same_plan,
+           **{s: fl_summary(r) for s, r in res.items()})
+    for policy in EXAMPLE_POLICIES:
+        argv = ["--scenario", "multi_region", "--global-model", "--rounds",
+                "6", "--policy", policy]
+        out, counts, wall = _example(launchers, sagin_fl_end2end.main, argv)
+        res, merges = out["results"], out["merges"]
+        region_rounds = sum(len(r.accuracies) for r in res.values())
+        ok = (len(res) == 4 and region_rounds == 24
+              and all(_finite(r.accuracies) for r in res.values())
+              and len(merges) > 0 and all(m.policy == policy for m in merges)
+              and counts["fedavg_agg"] == region_rounds + len(merges))
+        report("sagin_fl_end2end", argv, out, counts, wall, ok,
+               region_rounds=region_rounds, merges=len(merges),
+               global_acc=[max(a for a in m.accuracies if not math.isnan(a))
+                           for m in merges])
+    argv = ["--scenario", "degraded_links", "--rounds", "3"]
+    out, counts, wall = _example(launchers, sagin_fl_end2end.main, argv)
+    res = out["results"]
+    ok = (sorted(res) == ["adaptive", "none"]
+          and all(_finite(r.accuracies) for r in res.values())
+          and counts["fedavg_agg"] == 6)
+    report("sagin_fl_end2end", argv, out, counts, wall, ok,
+           **{s: fl_summary(r) for s, r in res.items()})
+    out, counts, wall = _example(launchers, quickstart.main, [])
+    res = out["result"]
+    ok = (len(res.accuracies) == 4 and _finite(res.accuracies)
+          and counts["fedavg_agg"] == 4)
+    report("quickstart", [], out, counts, wall, ok, case=out["plan"].case,
+           speedup=out["baseline"] / out["plan"].round_latency,
+           **fl_summary(res))
+    out, counts, wall = _example(launchers, offloading_walkthrough.main, [])
+    ok = len(out["chain"]) > 0 and math.isfinite(out["plan"].round_latency)
+    report("offloading_walkthrough", [], out, counts, wall, ok,
+           windows=len(out["intervals"]))
+    out, counts, wall = _example(launchers, multiarch_demo.main, [])
+    runs = out["runs"]
+    ok = (len(runs) == 10 and _finite([r["loss"] for r in runs])
+          and counts["flash_attention"] > 0 and counts["wkv6"] > 0)
+    report("multiarch_demo", [], out, counts, wall, ok,
+           losses={r["arch"]: r["loss"] for r in runs},
+           decoded={r["arch"]: r["decoded"] for r in runs})
+    for arch in ("llama3.2-3b", "internvl2-1b"):
+        argv = ["--arch", arch]
+        out, counts, wall = _example(launchers, serve_demo.main, argv)
+        seqs = out["sequences"]
+        ok = len(seqs) == 4 and all(len(s) == 24 for s in seqs)
+        report("serve_demo", argv, out, counts, wall, ok,
+               tokens_per_s=out["tokens_per_s"], device=out["device"])
+    _free()
+    if bad:
+        raise RuntimeError(f"examples: an example's run is off: {bad}")
+    return total
+
+
 def _kernel_line(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3887,6 +4268,8 @@ def main() -> int:
             launches += mesh_launches
             launches += _run(phase_mesh_collectives, launchers, agg_kernel,
                                                agg_ref, shard_split, tmp)
+        examples = _run(phase_examples, launchers)
+        launches += examples["fedavg_agg"]
         fa_launches, prefill_shapes = _run(phase_transformer_prefill,
                                            launchers)
         _run(phase_transformer_decode, launchers)
@@ -3902,8 +4285,13 @@ def main() -> int:
         fa_launches += hybrid_launches
         _run(phase_transformer_decode, launchers, HYBRID, "hybrid_decode")
         _run(phase_hybrid_decode_vs_prefill, launchers)
+        dense_launches, dense_shapes = _run(phase_dense_prefill, launchers)
+        fa_launches += dense_launches
+        _run(phase_dense_decode, launchers)
+        _run(phase_dense_decode_vs_prefill, launchers)
         fa_case = _run(phase_flash_kernel, fa_kernel, fa_ref, prefill_shapes,
-                                     f32_shapes, moe_shapes, hybrid_shapes)
+                                     f32_shapes, moe_shapes, hybrid_shapes,
+                                     dense_shapes)
         wkv_case = _run(phase_wkv_kernel, wkv_kernel, wkv_ref, wkv_shape)
         train, train_shapes = _run(phase_transformer_train, launchers)
         rwkv_train, rwkv_train_shape = _run(phase_rwkv6_train, launchers)
@@ -3918,14 +4306,16 @@ def main() -> int:
         hybrid_fl = _run(phase_fl_train_step, launchers, agg_ref, HYBRID,
                                         n_layers=2,
                                         phase="hybrid_fl_train_step")
+        dense_train = _run(phase_dense_train, launchers)
         trained = (train, moe_train, fl_train, mesh_fl, moe_fl,
-                   hybrid_train, hybrid_fl)
-        launches += sum(c["fedavg_agg"] for c in trained)
+                   hybrid_train, hybrid_fl, dense_train, examples)
+        launches += sum(c["fedavg_agg"] for c in trained[:-1])
         fa_launches += sum(c["flash_attention"] for c in trained)
         fa_bwd_launches = sum(c["flash_attention_backward"]
                               for c in trained)
-        wkv_launches += rwkv_train["wkv6"]
-        wkv_bwd_launches = rwkv_train["wkv6_backward"]
+        wkv_launches += rwkv_train["wkv6"] + examples["wkv6"]
+        wkv_bwd_launches = (rwkv_train["wkv6_backward"]
+                            + examples["wkv6_backward"])
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             sharded = _run(phase_sharded_steps, launchers, tmp)
         fa_launches += sharded["flash_attention"]
@@ -3936,7 +4326,7 @@ def main() -> int:
         fa_bwd_case = _run(phase_flash_backward_kernel, fa_kernel, fa_ref,
                                                   train_shapes,
                                                   moe_train_shapes,
-                                                  hybrid_shapes)
+                                                  hybrid_shapes, dense_shapes)
         wkv_bwd_case = _run(phase_wkv_backward_kernel, wkv_kernel, wkv_ref,
                                                  rwkv_train_shape)
         _run(phase_roofline)

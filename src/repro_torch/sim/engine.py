@@ -446,8 +446,11 @@ class SAGINEngine:
         return out
 
 
-def run_fl_all_regions(cfg, scenario: "Scenario | str"):
+def run_fl_all_regions(cfg, scenario: "Scenario | str", *, params=None):
     """Train one INDEPENDENT FL model per scenario region via ``run_fl``.
+
+    ``params`` replaces the seeded initial model of every region (see
+    :class:`~repro_torch.fl.rounds.RegionTrainer`).
 
     Returns ``{region_name: FLResult}``; each region's result carries the
     realized (dynamics-priced) latencies in its time axis.  Region ``i``
@@ -483,7 +486,8 @@ def run_fl_all_regions(cfg, scenario: "Scenario | str"):
         for i, region in enumerate(scenario.regions):
             region_cfg = _dc.replace(cfg, scenario=scenario.name,
                                      region_index=i)
-            out[region.name] = run_fl(region_cfg, tracer=tracer)
+            out[region.name] = run_fl(region_cfg, tracer=tracer,
+                                      params=params)
     finally:
         if transient is not None:
             SCENARIOS.pop(transient, None)

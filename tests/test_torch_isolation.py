@@ -24,7 +24,7 @@ def _port_modules():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "examples")
 
 
 def test_importing_every_module_loads_neither_jax_nor_repro():
@@ -45,13 +45,16 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                  "analysis.__main__", "configs.paper_cnn", "launch.mesh",
                  "launch.op_analysis", "launch.dryrun", "kernels.region",
                  "launch.spawn", "launch.gloo_probe", "sharding",
-                 "sharding.specs", "sharding.activations"):
+                 "sharding.specs", "sharding.activations",
+                 "examples.quickstart", "examples.offloading_walkthrough",
+                 "examples.sagin_fl_end2end", "examples.multiarch_demo",
+                 "examples.serve_demo"):
         assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'))\n"
+            "('jax', 'jaxlib', 'repro', 'examples'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

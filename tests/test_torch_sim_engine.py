@@ -40,14 +40,15 @@ PRESETS = ["paper", "mega_constellation", "multi_region", "degraded_links",
            "device_churn", "flash_crowd", "chaos"]
 
 
-def _xr2(pkg_scenario, pkg_region, fed):
-    """The reference tests' two-region merge scenario (unregistered)."""
+def _xr2(pkg_scenario, pkg_region, fed, policy="synchronous"):
+    """The reference tests' two-region merge scenario (unregistered),
+    merging under ``policy``."""
     return pkg_scenario(
         name="_xr2", description="two-region merge test scenario",
         regions=(pkg_region("indiana", 40.0, -86.0),
                  pkg_region("nairobi", -1.3, 36.8)),
         n_devices=4, n_air=1,
-        federation=fed(policy="synchronous", every=1, topology="star",
+        federation=fed(policy=policy, every=1, topology="star",
                        half_life=600.0),
         horizon=6 * 3600.0)
 
@@ -83,10 +84,18 @@ def test_network_only_engine_matches_reference(name):
     assert got.summary() == want.summary()
 
 
-def test_fl_engine_matches_reference_merge_by_merge(init):
-    jeng = JaxEngine(_xr2(JaxScenario, JaxRegion, JF.FederationConfig),
-                     fl=JaxFLConfig(**TINY))
-    eng = SAGINEngine(_xr2(Scenario, Region, FederationConfig),
+POLICIES = ["synchronous", "elected_hub", "partial", "soft_async"]
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_fl_engine_matches_reference_merge_by_merge(init, policy):
+    """Two regions merging every round under each federation policy:
+    the same step order and ``MergeEvent`` fields as the reference's
+    engine, the global model after the first merge within 1e-5, and
+    every region's times, latencies and cases identical."""
+    jeng = JaxEngine(_xr2(JaxScenario, JaxRegion, JF.FederationConfig,
+                          policy), fl=JaxFLConfig(**TINY))
+    eng = SAGINEngine(_xr2(Scenario, Region, FederationConfig, policy),
                       fl=FLConfig(device="cpu", **TINY),
                       params=params_from_jax(init, "cpu"))
     order, jorder = [], []
@@ -102,9 +111,16 @@ def test_fl_engine_matches_reference_merge_by_merge(init):
             a, b = (tree_leaves(t.params) for t in eng.trainers)
             assert all(x is not y and x.data_ptr() != y.data_ptr()
                        for x, y in zip(a, b))
-    assert order == jorder == [(0, 0), (1, 0), (0, 1), (1, 1)]
-    assert len(eng.merges) == len(jeng.merges) == 2
+    # soft_async steps each region on without a barrier, in its own
+    # order, and disperses to one recipient a merge: 4 merges in 2 rounds
+    assert order == jorder
+    assert sorted(order) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    if policy != "soft_async":
+        assert order == [(0, 0), (1, 0), (0, 1), (1, 1)]
+    assert len(eng.merges) == len(jeng.merges) == (
+        4 if policy == "soft_async" else 2)
     for got, want in zip(eng.merges, jeng.merges):
+        assert got.policy == policy
         assert _merge_fields(got) == _merge_fields(want)
         np.testing.assert_allclose(got.accuracies, want.accuracies,
                                    atol=4 / TINY["eval_size"])

@@ -184,6 +184,33 @@ def test_decode_matches_prefill(name):
                                        rtol=TOL, atol=TOL)
 
 
+def test_decode_past_the_window_matches_reference():
+    """Reduced llama3.2-3b (window 64) decoded over 100 positions, so
+    the ring cache wraps after 64: the port's ``serve_step`` matches the
+    reference's at every position, and the port's windowed prefill."""
+    jcfg, cfg = _cfgs("llama3.2-3b")
+    assert cfg.sliding_window == jcfg.sliding_window == 64
+    jtree, tree = _jax_params(jcfg, seed=4)
+    params = transformer_params_from_jax(cfg, tree, device="cpu")
+    x = _inputs(cfg, 2, 100, seed=4)
+    jstep = jax.jit(JT.serve_step, static_argnums=1)
+    jcache = _jax_cache(jcfg, 2, 100)
+    cache = T.init_cache(cfg, 2, 100, device="cpu")
+    assert cache[0]["sub0"]["k"].shape[2] == 64
+    with torch.no_grad():
+        full, _ = T.logits_fn(params, cfg, _torch_inputs(x))
+        for pos in range(100):
+            want, jcache = jstep(jtree, jcfg, jcache,
+                                 jnp.asarray(x[:, pos:pos + 1]),
+                                 jnp.int32(pos))
+            got, cache = T.serve_step(params, cfg, cache,
+                                      _torch_inputs(x[:, pos:pos + 1]), pos)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=TOL, atol=TOL, err_msg=str(pos))
+            np.testing.assert_allclose(got.numpy(), full[:, pos].numpy(),
+                                       rtol=TOL, atol=TOL, err_msg=str(pos))
+
+
 def test_sliding_window_cache_is_bounded():
     cfg = get_config("llama3.2-3b").reduced()
     assert cfg.sliding_window == 64
