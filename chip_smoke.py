@@ -204,8 +204,9 @@ Phases, each printed as one JSON object on its own line:
     no kernel on its path, every count 0, the aux loss finite) and
     qwen3-moe-235b-a22b at 4 layers (``flash_attention`` and its
     backward at a GQA group of 16).
-19b. ``hybrid_train``: the same for jamba's block (``CUTS``) at B = 1 x
-    2048 (``HYBRID_TRAIN_BATCH``; no profiled step, ``PROFILE_SKIP``):
+19b. ``hybrid_train``: the same for jamba's block (``CUTS``) cut to its
+    first 4 layers (``HYBRID_TRAIN_LAYERS``) at B = 1 x 2048
+    (``HYBRID_TRAIN_BATCH``; no profiled step, ``PROFILE_SKIP``):
     the attention kernels at a GQA group
     of 8, the chunked scan's checkpoints inside the block's; at 2 layers
     the gradients and stepped loss against the plain versions.
@@ -257,13 +258,24 @@ Phases, each printed as one JSON object on its own line:
     from the same params and batch (bit for bit), both walls, the
     kernels' launches, and each step's first attention and wkv call held,
     forward and backward, against the plain version on the local inputs
-    it was given, in bf16 and in float32.
+    it was given, in bf16 and in float32.  Then 8 ranks spawned on
+    ``cuda:0`` over the ``hoststage`` backend (each collective staged
+    through host memory over ``gloo``): llama3.2-3b and rwkv6-1.6b at
+    full width cut to 2 layers on the (1, 2), (2, 1), (2, 2) and (4, 2)
+    meshes (prefill and one train step on 8 x 512 tokens, 2 decode steps
+    at batch 16), deepseek-v2-lite-16b on (2, 2) (prefill, train step)
+    and the pod FL round of two llama3.2-3b replicas on (2, 1, 2), each
+    within 1e-4 x (1 + |want|) of ``mesh=None`` on the card in float32;
+    one line a mesh and config with the collectives' counts and bytes,
+    the launches on rank 0 and both walls, and on (2, 2) each rank's
+    first bf16 attention and wkv call against the plain version.
 21b. ``dryrun_mesh``: ``python -m repro_torch.launch.dryrun`` at ``--mesh
     single`` (olmo-1b train_4k, a ``"fake"`` group of 256 ranks) and
     ``--mesh multi --fl-step`` (llama3.2-3b, 512), each in its own
     process: ``status: ok``, all-gather and all-reduce bytes, and
     olmo-1b's per-device FLOPs x 256 over its one-device count in
-    [0.99, 2.0].
+    [0.99, 2.0].  Both processes run beside ``roofline`` (22); the line
+    follows it.
 22. ``roofline``: every prefill and train step whose wall phases 13-19c
     measured (but those in ``ROOFLINE_SKIP``), counted on the ``meta``
     device by ``repro_torch.launch.dryrun.run_one`` at the same config,
@@ -279,7 +291,8 @@ that line.
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after; ``fedavg_agg``'s count in the kernel
 line sums its paths (phases 2, 2a, 8, 9, 11, 12, 12a, 12b, 12c, 20,
-20-mesh, 20a and 20b; the spawned ranks count their own), the
+20-mesh, 20a, 20b and 21a's pod FL round; the spawned ranks count their
+own), the
 attention and wkv counts theirs (prefill, training, the FL steps, the
 sharded steps, the examples).  Then a
 ``{"kernels": [...]}`` line and, last, the device line.  Any failed phase, a missing CUDA
@@ -2967,18 +2980,24 @@ def phase_moe_train(launchers):
     return total, shape
 
 
-# jamba's block trains at B = 1 x 2048: the bf16 params and their
-# gradients take 60.5 GiB of the card's 79.2 before any activation
+# jamba's block trains at B = 1 x 2048: the whole block's bf16 params and
+# their gradients take 60.5 GiB of the card's 79.2 before any activation.
+# Its timed steps run half the block (its attention layer and 3 Mamba
+# layers; the 2-layer checks as before): the 8-layer block's 6-8 s steps
+# (NVIDIA H100 80GB HBM3, 700.00 W) put the script past its 900 s once
+# the sharded steps ran on 8 ranks
 HYBRID_TRAIN_BATCH = 1
+HYBRID_TRAIN_LAYERS = 4
 
 
 def phase_hybrid_train(launchers):
-    """``_train_phase`` on jamba's block (``CUTS``; the flash_attention
-    forward and backward at a GQA group of 8, the Mamba layers' chunked
-    scan through autograd and its checkpoints inside the block's)."""
+    """``_train_phase`` on jamba's block (``CUTS``) cut to
+    ``HYBRID_TRAIN_LAYERS`` (the flash_attention forward and backward at
+    a GQA group of 8, the Mamba layers' chunked scan through autograd and
+    its checkpoints inside the block's)."""
     return _train_phase(launchers, "hybrid_train", HYBRID,
                         ("flash_attention", "flash_attention_backward"),
-                        batch=HYBRID_TRAIN_BATCH)
+                        batch=HYBRID_TRAIN_BATCH, n_layers=HYBRID_TRAIN_LAYERS)
 
 
 # ---------------------------------------------------------------------------
@@ -3791,8 +3810,9 @@ def phase_roofline():
 # Tensor and FSDP parallelism on DTensor ---------------------------------------
 # ---------------------------------------------------------------------------
 def _rel_err(got, want) -> float:
-    """max |got - want| / (1 + |want|) over two tensors (in float32)."""
-    got, want = got.float(), want.float()
+    """max |got - want| / (1 + |want|) over two tensors (in float32, on
+    ``got``'s device)."""
+    got, want = got.float(), want.to(got.device).float()
     return float(((got - want).abs() / (1 + want.abs())).max())
 
 
@@ -3930,24 +3950,504 @@ def _sharded_case(launchers, label, one_step, mesh_step, args_one,
                    and all(k["ok"] for k in kernels.values()))}
 
 
-def phase_sharded_steps(launchers, tmp):
-    """The DTensor steps in an NCCL group of one rank on a (1, 1)
-    ``("data", "model")`` mesh (``make_host_mesh``), params placed by
-    ``param_pspecs``: llama3.2-3b and rwkv6-1.6b at full width and depth,
-    prefill of 4 x 2048 tokens and one train step (remat) on 4 x 2048,
-    each against the same step at ``mesh=None`` from the same params and
-    batch: the logits, the loss and the post-step params bit for bit
-    equal (the largest difference printed); both walls (their difference is DTensor's host overhead);
-    the kernels' launches on the mesh run, as many as the one-device
-    step's; and the first attention and wkv call of each mesh step held,
-    forward and backward, against the plain version on the local inputs
-    it was given, in bf16 and in float32.  (Two ``gloo`` ranks sharing
-    the card cannot run these steps: ``gloo``'s ``all_gather_into_tensor``
-    on CUDA tensors, which DTensor dispatches, ends the process with
-    SIGSEGV on torch 2.11 (``python -m repro_torch.launch.gloo_probe``);
-    the 2-rank kernels on split heads are held in
-    ``tests/test_torch_tensor_parallel_cuda.py``, which dispatches no
-    all-gather.)"""
+# The same steps on 2 to 8 ranks sharing cuda:0 (``hoststage``) ---------------
+SHARDED_RANKS = 8
+SHARDED_DENSE = ("llama3.2-3b", "rwkv6-1.6b")
+SHARDED_MOE = "deepseek-v2-lite-16b"       # on (2, 2): prefill, train step
+SHARDED_POD = (2, 1, 2)                    # ("pod", "data", "model")
+POD_FL = "pod FL round"
+BF16 = "bf16 kernels"
+# the works whose mesh=None steps ranks 0, 1, 2 and 3 run, one each, at
+# once (their walls beside each other's)
+SHARDED_WANTS = SHARDED_DENSE + (SHARDED_MOE, POD_FL)
+# The meshes in the order they run, each over the first ranks (mesh
+# shape, what runs on it in order).  One at a time: the steps are bound
+# by the host (the staging, DTensor's dispatch), so meshes run at once on
+# disjoint ranks gain nothing and hold more host memory at once
+SHARDED_MESHES = (((1, 2), SHARDED_DENSE), ((2, 1), SHARDED_DENSE),
+                  ((2, 2), SHARDED_DENSE + (BF16, SHARDED_MOE)),
+                  ((4, 2), SHARDED_DENSE), (SHARDED_POD, (POD_FL,)))
+# every config at its published width, cut to 2 layers; prefill and the
+# train step on 8 x 512 tokens; decode of 2 steps at batch 16 into a
+# cache of 64 (its sequence splits over ``model``; on a ``data`` axis
+# each step gathers every weight again, and 4 steps kept the script
+# above its 900 s); the pod FL step: 2 replicas of llama3.2-3b, 4 x 512
+# tokens each, 2 local steps
+SHARDED_LAYERS = 2
+SHARDED_SEQ, SHARDED_BATCH = 512, 8
+SHARDED_DECODE_LEN, SHARDED_DECODE_BATCH, SHARDED_DECODE_STEPS = 64, 16, 2
+SHARDED_H_LOCAL = 2
+# tests/tensor_parallel_cases.py's TOL: x (1 + |want|), float32, TF32 off;
+# the collectives reorder sums, so bit for bit is not expected
+SHARDED_TOL = 1e-4
+# rwkv6-1.6b's float32 decode at full width is conditioned near that
+# bound: at mesh=None, its batch of 16 run as two halves of 8 moves the
+# first position's logits by 5.7e-5 to 7.8e-5 x (1 + |want|) (one term
+# in each head's state, then the head's RMS norm), and the meshes'
+# decodes read up to 1.5e-4 (NVIDIA H100 80GB HBM3, 700.00 W); so a
+# decode step is held to SHARDED_TOL or to this many times that run's
+# own floor at its position, whichever is larger (llama3.2-3b's floor
+# is ~5e-6, which leaves it at SHARDED_TOL)
+DECODE_FLOOR_FACTOR = 4
+SHARDED_CUTS = [f"n_layers {SHARDED_LAYERS} (published: llama3.2-3b 28, "
+                f"rwkv6-1.6b 24, deepseek-v2-lite-16b 27)",
+                f"train and prefill {SHARDED_BATCH} x {SHARDED_SEQ} tokens",
+                f"decode batch {SHARDED_DECODE_BATCH}, cache "
+                f"{SHARDED_DECODE_LEN}, {SHARDED_DECODE_STEPS} steps",
+                f"pod FL step {SHARDED_BATCH // 2} x {SHARDED_SEQ} tokens a "
+                f"replica, h_local {SHARDED_H_LOCAL}"]
+
+
+def _launchers():
+    """Every kernel wrapper whose launches the script counts."""
+    from repro_torch.kernels.fedavg_agg import kernel as agg_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
+    return {"fedavg_agg": agg_kernel.weighted_aggregate,
+            "flash_attention": fa_kernel.flash_attention,
+            "flash_attention_backward": fa_kernel.flash_attention_backward,
+            "wkv6": wkv_kernel.wkv,
+            "wkv6_backward": wkv_kernel.wkv_backward}
+
+
+def _sharded_cfg(name, dtype="float32"):
+    return _config(name, SHARDED_LAYERS, param_dtype=dtype)
+
+
+def _sharded_inputs(cfg):
+    """The train batch (its inputs are the prefill's) and the decode
+    tokens, on the card, the same on every rank."""
+    batch = _train_batch(cfg, (SHARDED_BATCH,), SHARDED_SEQ, seed=7)
+    tokens = _train_batch(cfg, (SHARDED_DECODE_BATCH,),
+                          SHARDED_DECODE_STEPS, seed=8)["inputs"]
+    return batch, tokens
+
+
+def _shapes(cfg):
+    from repro_torch.configs.shapes import InputShape
+    return (InputShape("sharded", SHARDED_SEQ, SHARDED_BATCH, "train"),
+            InputShape("sharded_decode", SHARDED_DECODE_LEN,
+                       SHARDED_DECODE_BATCH, "decode"))
+
+
+def _host_leaves(tree):
+    """Float32 host copies of every leaf (copies also of host leaves: the
+    step that made them may run again in place)."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    return [x.detach().to("cpu", torch.float32, copy=True)
+            for x in tree_leaves(tree)]
+
+
+def _scalar_err(got: float, want: float) -> float:
+    return abs(got - want) / (1 + abs(want))
+
+
+class _Collectives:
+    """The ``hoststage`` collectives this process dispatched while the
+    steps ran (the checks' left out): {name: {"count", "bytes",
+    "copy_s", "wire_s"}} (``hoststage.stats``)."""
+
+    def __init__(self):
+        self.total = {}
+
+    def run(self, fn, *args):
+        from repro_torch.launch import hoststage
+        before = hoststage.stats()
+        out = fn(*args)
+        for k, v in hoststage.stats().items():
+            was = before.get(k, dict.fromkeys(v, 0))
+            if v["count"] == was["count"]:
+                continue
+            rec = self.total.setdefault(k, dict.fromkeys(v, 0))
+            for f, x in v.items():
+                rec[f] += x - was[f]
+        return out
+
+
+def _decode(step, params, cache, tokens):
+    """``SHARDED_DECODE_STEPS`` decode steps from position 0: each step's
+    logits."""
+    out = []
+    for pos in range(SHARDED_DECODE_STEPS):
+        logits, cache = step(params, cache, tokens[:, pos:pos + 1], pos)
+        out.append(logits)
+    return out
+
+
+def _decode_halves(cfg, params, tokens):
+    """The decode of :func:`_decode` at ``mesh=None`` on the batch's two
+    halves, each its own call: the logits, as one batch."""
+    import torch
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.serve import make_serve_step
+    from repro_torch.models import transformer as T
+    half = SHARDED_DECODE_BATCH // 2
+    step = make_serve_step(cfg, shape=InputShape(
+        "sharded_decode_half", SHARDED_DECODE_LEN, half, "decode"))
+    parts = [_decode(step, params, T.init_cache(
+        cfg, half, SHARDED_DECODE_LEN, device="cuda"), tokens[rows])
+        for rows in (slice(0, half), slice(half, None))]
+    return [torch.cat(pair) for pair in zip(*parts)]
+
+
+def _sharded_want(name):
+    """``name``'s steps at ``mesh=None`` on the card (on one of ranks
+    0-3, before any mesh), from :func:`_sharded_config_on_mesh`'s params and inputs: the
+    prefill logits, the decode logits (a dense config), the train step's
+    loss and params, on the host (for :func:`_save_want`); each step's
+    wall (the train step's from a second step).  A dense config's
+    decode also runs on the batch's two halves: how far that moves the
+    logits is the float32 floor of a batch split at ``mesh=None``."""
+    from repro_torch.launch.serve import make_serve_step
+    from repro_torch.launch.train import (make_prefill_step,
+                                          make_sharded_train_step)
+    from repro_torch.models import transformer as T
+    cfg = _sharded_cfg(name)
+    train_shape, decode_shape = _shapes(cfg)
+    params = T.init_params(cfg, seed=0, device="cuda")
+    batch, tokens = _sharded_inputs(cfg)
+    want, walls = {}, {}
+    logits, walls["prefill"] = _synced(make_prefill_step(cfg), params,
+                                       {"inputs": batch["inputs"]})
+    want["prefill"] = logits.cpu()
+    if name != SHARDED_MOE:
+        cache = T.init_cache(cfg, SHARDED_DECODE_BATCH, SHARDED_DECODE_LEN,
+                             device="cuda")
+        steps, walls["decode"] = _synced(
+            _decode, make_serve_step(cfg, shape=decode_shape), params,
+            cache, tokens)
+        want["decode"] = [s.cpu() for s in steps]
+        want["decode_halves_rel_err"] = [
+            _rel_err(a, b) for a, b in zip(
+                _decode_halves(cfg, params, tokens), steps)]
+        del cache, steps
+    step = make_sharded_train_step(cfg, train_shape, lr=TRAIN_LR[name])
+    new, metrics = step(params, batch)
+    want["loss"] = float(metrics["loss"])
+    want["params"] = _host_leaves(new)
+    # the wall of a second step (the first allocates the step's memory)
+    _, walls["train_step"] = _synced(step, new, batch)
+    del params, new
+    _free()
+    return want, walls
+
+
+def _save_want(want, root, name):
+    """``mesh=None``'s results of ``name`` under ``root/name``, for every
+    rank to read: each post-step param leaf an ``.npy`` (float32), the
+    rest pickled.  Files, so that no rank holds the whole reference and
+    none sends it: each reads its own shards (:func:`_params_err`)."""
+    import pickle
+    import numpy as np
+    out = Path(root) / name
+    out.mkdir(parents=True)
+    for i, leaf in enumerate(want.pop("params")):
+        np.save(out / f"{i}.npy", leaf.numpy())
+    with open(out / "rest.pkl", "wb") as fh:
+        pickle.dump(want, fh)
+
+
+def _load_want(root, name):
+    """What :func:`_save_want` wrote; ``params`` the directory of the
+    leaves."""
+    import pickle
+    with open(Path(root) / name / "rest.pkl", "rb") as fh:
+        want = pickle.load(fh)
+    want["params"] = Path(root) / name
+    return want
+
+
+def _params_err(new, leaves_dir):
+    """This rank's largest error over every post-step leaf of ``new``
+    (DTensors) against its part of the leaf saved in ``leaves_dir``
+    (mapped, so only this rank's shard is read; a leaf's leading replica
+    axis of 1 added where it has one)."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.tree import tree_leaves
+    err = 0.0
+    for i, leaf in enumerate(tree_leaves(new)):
+        full = np.load(leaves_dir / f"{i}.npy", mmap_mode="r").reshape(
+            leaf.shape)
+        shape, offset = compute_local_shape_and_global_offset(
+            leaf.shape, leaf.device_mesh, leaf.placements)
+        part = full[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+        err = max(err, _rel_err(leaf.to_local(),
+                                torch.from_numpy(np.ascontiguousarray(part))))
+    return err
+
+
+def _sharded_config_on_mesh(mesh, name, want, launchers):
+    """``name``'s prefill, decode (a dense config) and one train step on
+    ``mesh`` from :func:`_sharded_want`'s params and inputs, on every
+    rank of the mesh, each result held against ``want``
+    (:func:`_load_want`): the logits gathered whole on the mesh's first
+    rank, every post-step param shard on its own rank (the largest error
+    x (1 + |want|)).  Each
+    step's wall, the host seconds of the checks, the collectives the
+    steps dispatched and the kernels' launches on this rank."""
+    from repro_torch.launch.serve import make_serve_step
+    from repro_torch.launch.train import (make_prefill_step,
+                                          make_sharded_train_step)
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.activations import to_global
+    lead = not any(mesh.get_coordinate())
+    cfg = _sharded_cfg(name)
+    train_shape, decode_shape = _shapes(cfg)
+    params = T.init_params(cfg, seed=0, device="cuda")
+    batch, tokens = _sharded_inputs(cfg)
+    pre = make_prefill_step(cfg, mesh=mesh)
+    train = make_sharded_train_step(cfg, train_shape, lr=TRAIN_LR[name],
+                                    mesh=mesh)
+    sv = (None if name == SHARDED_MOE
+          else make_serve_step(cfg, mesh=mesh, shape=decode_shape))
+    assert pre.pspecs == train.pspecs and (sv is None
+                                           or sv.pspecs == train.pspecs)
+    # the three steps place params alike: one copy, the train step last
+    # (it updates them in place)
+    placed = train.place(params)
+    del params
+    _free()
+    coll, walls, errs = _Collectives(), {}, {}
+    set_counts(launchers)
+    logits, walls["prefill"] = coll.run(
+        _synced, pre, placed, {"inputs": batch["inputs"]})
+    t0 = time.perf_counter()
+    logits = to_global(logits)
+    if lead:
+        errs["prefill"] = _rel_err(logits, want["prefill"])
+    check_s = time.perf_counter() - t0
+    if sv is not None:
+        cache = sv.place_cache(T.init_cache(
+            cfg, SHARDED_DECODE_BATCH, SHARDED_DECODE_LEN, device="cuda"))
+        steps, walls["decode"] = coll.run(_synced, _decode, sv, placed,
+                                          cache, tokens)
+        t0 = time.perf_counter()
+        steps = [to_global(x) for x in steps]
+        if lead:
+            errs["decode_by_position"] = [
+                _rel_err(x, w) for x, w in zip(steps, want["decode"])]
+            errs["decode"] = max(errs["decode_by_position"])
+        check_s += time.perf_counter() - t0
+        del cache, steps
+    (new, metrics), walls["train_step"] = coll.run(
+        _synced, train, placed, batch)
+    del placed
+    launches = read_counts(launchers)
+    t0 = time.perf_counter()
+    errs["params"] = _params_err(new, want["params"])
+    if lead:
+        errs["loss"] = _scalar_err(float(metrics["loss"]), want["loss"])
+    check_s += time.perf_counter() - t0
+    del new
+    _free()
+    return {"walls_s": walls, "check_s": check_s, "max_rel_err": errs,
+            "collectives": coll.total, "launches": launches,
+            "decode_halves_rel_err": want.get("decode_halves_rel_err")}
+
+
+def _pod_fl_inputs(cfg):
+    """The two replicas' batches, (2, 4, 512) tokens, the same on every
+    rank."""
+    return _train_batch(cfg, (2, SHARDED_BATCH // 2), SHARDED_SEQ, seed=9)
+
+
+def _pod_fl_want():
+    """The pod FL step's round at ``mesh=None`` on the card (rank 3):
+    both replicas stacked (seeds 10 and 11), one ``make_fl_train_step``
+    round; replica 0's params on the host, the loss; a second round's
+    wall."""
+    import torch
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.train import make_fl_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    name = "llama3.2-3b"
+    cfg = _sharded_cfg(name)
+    reps = tree_map(lambda a, b: torch.stack([a, b]),
+                    T.init_params(cfg, seed=10, device="cuda"),
+                    T.init_params(cfg, seed=11, device="cuda"))
+    step = make_fl_train_step(cfg, 2, InputShape(
+        "sharded_fl", SHARDED_SEQ, SHARDED_BATCH, "train"),
+        lr=TRAIN_LR[name], h_local=SHARDED_H_LOCAL)
+    data = _pod_fl_inputs(cfg)
+    new, metrics = step(reps, data)
+    want = {"loss": float(metrics["loss"]),
+            "params": _host_leaves(tree_map(lambda t: t[0], new))}
+    _, wall = _synced(step, new, data)    # a second round's wall
+    del reps, new
+    _free()
+    return want, {"fl_round": wall}
+
+
+def _pod_fl_on_mesh(mesh, want, launchers):
+    """The pod FL step on ``mesh`` (pod 2, data 1, model 2): each pod one
+    replica, split over ``model``, its rows of the batch, one round
+    through ``fedavg_agg`` on every shard; both pods' aggregates held
+    against ``want`` (on each pod's first rank), shard by shard."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.train import make_fl_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    name = "llama3.2-3b"
+    cfg = _sharded_cfg(name)
+    pod = mesh.get_coordinate()[0]
+    rep = T.init_params(cfg, seed=10 + pod, device="cuda")
+    data = {k: v[pod:pod + 1] for k, v in _pod_fl_inputs(cfg).items()}
+    step = make_fl_train_step(cfg, 2, InputShape(
+        "sharded_fl", SHARDED_SEQ, SHARDED_BATCH, "train"),
+        lr=TRAIN_LR[name], h_local=SHARDED_H_LOCAL, mesh=mesh)
+    mine = step.place(tree_map(lambda t: t[None].clone(), rep))
+    del rep
+    _free()
+    coll = _Collectives()
+    set_counts(launchers)
+    (new, metrics), wall = coll.run(_synced, step, mine, data)
+    launches = read_counts(launchers)
+    t0 = time.perf_counter()
+    errs = {"params": _params_err(new, want["params"])}
+    if not any(mesh.get_coordinate()[1:]):     # each pod's first rank
+        errs["loss"] = _scalar_err(float(metrics["loss"]), want["loss"])
+    check_s = time.perf_counter() - t0
+    del new, mine
+    _free()
+    return {"walls_s": {"fl_round": wall}, "check_s": check_s,
+            "max_rel_err": errs, "collectives": coll.total,
+            "launches": launches}
+
+
+def _bf16_kernels_on_mesh(mesh, name):
+    """``name`` in bf16 through a prefill on ``mesh``: this rank's first
+    attention or wkv call, forward and backward, against the plain
+    version on the local inputs it got (:func:`_kernels_on_shards`)."""
+    from repro_torch.launch.train import make_prefill_step
+    from repro_torch.models import transformer as T
+    cfg = _sharded_cfg(name, "bfloat16")
+    params = T.init_params(cfg, seed=0, device="cuda")
+    batch, _ = _sharded_inputs(cfg)
+    pre = make_prefill_step(cfg, mesh=mesh)
+    placed = pre.place(params)
+    del params
+    seen, restore = _captured_kernels()
+    try:
+        _synced(pre, placed, {"inputs": batch["inputs"]})
+    finally:
+        restore()
+    del placed
+    _free()
+    return _kernels_on_shards(seen)
+
+
+def _warm_up():
+    """This rank's first use of the card's libraries and kernels (the
+    attention and wkv kernels forward and backward, in float32): a
+    prefill and a train step of each dense config reduced.  Else the
+    first full-width step pays it: a ``mesh=None`` wall, or a mesh step
+    that every rank of its mesh waits on."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.train import (make_prefill_step,
+                                          make_sharded_train_step)
+    from repro_torch.models import transformer as T
+    for name in SHARDED_DENSE:
+        cfg = dataclasses.replace(get_config(name).reduced(),
+                                  param_dtype="float32")
+        params = T.init_params(cfg, seed=0, device="cuda")
+        data = _train_batch(cfg, (2,), 64)
+        _synced(make_prefill_step(cfg), params, {"inputs": data["inputs"]})
+        _synced(make_sharded_train_step(
+            cfg, InputShape("warm", 64, 2, "train")), params, data)
+    _free()
+
+
+def _sharded_rank(rank, world, want_dir, go):
+    """A rank of the multi-rank part of ``phase_sharded_steps`` (ranks on
+    ``cuda:0`` over ``hoststage``): it waits for the file ``go`` (the
+    parent's own use of the card ends) and warms up (:func:`_warm_up`),
+    then ranks 0-3 each run one work's steps at ``mesh=None``
+    (``SHARDED_WANTS``) and save the results under ``want_dir``
+    (:func:`_save_want`); then every rank makes each mesh of
+    ``SHARDED_MESHES`` in turn and its members run the work on it.  Returns this rank's record of each
+    mesh it ran, and on (2, 2) its bf16 kernel checks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    torch.set_num_threads(1)    # 8 ranks share the host's cores
+    while not os.path.exists(go):
+        if time.perf_counter() - t0 > 600:
+            raise TimeoutError(f"no {go} after 600 s")
+        time.sleep(0.05)
+    _tf32_off()
+    launchers = _launchers()
+    _warm_up()
+    if rank < len(SHARDED_WANTS):
+        name = SHARDED_WANTS[rank]
+        want, walls = (_pod_fl_want() if name == POD_FL
+                       else _sharded_want(name))
+        _save_want(dict(want, walls=walls), want_dir, name)
+        del want
+    dist.barrier()
+    records, kernels = [], {}
+    for shape, work in SHARDED_MESHES:
+        names = (("pod", "data", "model") if len(shape) == 3
+                 else ("data", "model"))
+        mesh = make_mesh(shape, names, device="cuda")
+        if mesh.get_coordinate() is None:
+            continue
+        for name in work:
+            if name == BF16:
+                kernels = {n: _bf16_kernels_on_mesh(mesh, n)
+                           for n in SHARDED_DENSE}
+                continue
+            want = _load_want(want_dir, name)
+            rec = (_pod_fl_on_mesh(mesh, want, launchers) if name == POD_FL
+                   else _sharded_config_on_mesh(mesh, name, want,
+                                                launchers))
+            records.append({
+                "mesh": list(shape), "config": "llama3.2-3b"
+                if name == POD_FL else name, "step": name
+                if name == POD_FL else "prefill, decode, train step",
+                "ranks": list(range(math.prod(shape))),
+                "wall_one_s": want["walls"], **rec})
+            if rank == 0:   # progress, for a run that fails later
+                print(json.dumps({"sharded_steps_done": [
+                    list(shape), name], "walls_s": rec["walls_s"],
+                    "check_s": rec["check_s"],
+                    "rank_s": time.perf_counter() - t0}),
+                    file=sys.stderr, flush=True)
+    torch.cuda.synchronize()
+    return {"records": records, "bf16_kernels": kernels,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _merged_records(ranks):
+    """Rank 0's records (rank 0 is the first rank of every mesh), with
+    every member's errors folded in (the largest of each)."""
+    def key(rec):
+        return tuple(rec["mesh"]), rec["config"], rec["step"]
+
+    out = {key(rec): dict(rec, max_rel_err=dict(rec["max_rel_err"]))
+           for rec in ranks[0]["records"]}
+    for rank in ranks[1:]:
+        for rec in rank["records"]:
+            _fold(out[key(rec)]["max_rel_err"], rec["max_rel_err"])
+    return list(out.values())
+
+
+def _fold(into, errs):
+    for k, v in errs.items():
+        if not isinstance(v, list):
+            into[k] = max(into.get(k, 0.0), v)
+
+
+def _sharded_world_one(launchers, tmp):
+    """``phase_sharded_steps``' (1, 1) mesh in an NCCL group of one rank
+    (its docstring); returns the kernels' launches."""
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import (make_prefill_step,
@@ -4005,43 +4505,212 @@ def phase_sharded_steps(launchers, tmp):
     return total
 
 
-def _dryrun_cli(*args):
-    """``python -m repro_torch.launch.dryrun`` in a subprocess; its JSON
-    record and host wall."""
-    out = tempfile.mkdtemp(prefix="dryrun_")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+def phase_sharded_steps(launchers, tmp):
+    """The DTensor steps (tensor and FSDP parallelism), first in an NCCL
+    group of one rank on a (1, 1) ``("data", "model")`` mesh
+    (``make_host_mesh``), params placed by ``param_pspecs``: llama3.2-3b
+    and rwkv6-1.6b at full width and depth, prefill of 4 x 2048 tokens
+    and one train step (remat) on 4 x 2048, each against the same step
+    at ``mesh=None`` from the same params and batch: the logits, the loss
+    and the post-step params bit for bit equal (the largest difference
+    printed); both walls (their difference is DTensor's host overhead);
+    the kernels' launches on the mesh run, as many as the one-device
+    step's; and the first attention and wkv call of each mesh step held,
+    forward and backward, against the plain version on the local inputs
+    it was given, in bf16 and in float32.
+
+    Then the same steps at world > 1: ``SHARDED_RANKS`` ranks spawned on
+    ``cuda:0`` over ``hoststage`` (``repro_torch.launch.hoststage``:
+    each collective staged through host memory over ``gloo``; NCCL puts
+    one rank on a card, and plain ``gloo``'s all-gather on CUDA tensors
+    ends the rank), every config at its published width cut as
+    ``SHARDED_CUTS`` says, in float32 (TF32 off): llama3.2-3b and
+    rwkv6-1.6b on (1, 2), (2, 1), (2, 2) and (4, 2) (prefill, one train
+    step with remat, 2 decode steps at batch 16), deepseek-v2-lite-16b on
+    (2, 2) (prefill, train step), and the pod FL round of two llama3.2-3b
+    replicas on (pod 2, data 1, model 2) through ``fedavg_agg`` on every
+    shard, one mesh after another (``SHARDED_MESHES``).  Each is held
+    against the same step at ``mesh=None`` on the card, which rank 0
+    runs first while the others warm up:
+    prefill logits, the loss and every post-step param within
+    ``SHARDED_TOL`` x (1 + |want|), each decode step within that or
+    ``DECODE_FLOOR_FACTOR`` times the float32 floor measured beside it
+    (the ``mesh=None`` decode on the batch's two halves).  One line a
+    mesh and config: those errors, the collectives the steps dispatched
+    on rank 0 (count, bytes, host seconds: none fails the line), the
+    kernels' launches there against the count the layers need, both walls and the checks' seconds; on (2, 2) each of the 4
+    ranks' first attention and wkv call of a bf16 prefill held, forward
+    and backward, against the plain version on its local inputs.  A
+    backend that cannot be registered fails the phase: nothing drops to
+    one rank or to ``mesh=None``."""
+    from repro_torch.launch import hoststage
+    from repro_torch.launch.spawn import run_ranks
+    total = {k: 0 for k in launchers}
+    go = os.path.join(tmp, "sharded_go")
+
+    def world_one():
+        for k, v in _sharded_world_one(launchers, tmp).items():
+            total[k] += v
+        _free()
+        Path(go).touch()
+
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                           *args, "--out", out], capture_output=True,
-                          text=True, timeout=300, env=env, cwd=str(ROOT))
+    ranks = run_ranks(_sharded_rank, SHARDED_RANKS,
+                      os.path.join(tmp, "sharded_hoststage"),
+                      (os.path.join(tmp, "sharded_want"), go),
+                      backend=hoststage.BACKEND, device="cuda", timeout=900,
+                      while_running=world_one)
     wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"dryrun {' '.join(args)} failed:\n"
-                           f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
-    path = next(Path(out).glob("*.json"))
-    return json.loads(path.read_text()), wall
+    card = nvidia_smi()
+    lines = [_sharded_line(rec, ranks, card) for rec in _merged_records(ranks)]
+    for line in lines:
+        emit(line)
+        for k, v in line["launches_rank0"].items():
+            total[k] += v
+    expected = sum(len([w for w in work if w != BF16])
+                   for _, work in SHARDED_MESHES)
+    ok = len(lines) == expected and all(line["ok"] for line in lines)
+    emit({"phase": "sharded_steps", "ok": ok, "card": card,
+          "route": f"{SHARDED_RANKS} ranks on cuda:0 over hoststage",
+          "lines": len(lines), "ranks_wall_s": wall,
+          "peak_memory_gib": [r["peak_memory_gib"] for r in ranks]})
+    if not ok:
+        raise RuntimeError("sharded_steps: a mesh step apart from mesh=None "
+                           "beyond tolerance, no collective dispatched, a "
+                           "launch count off or a bf16 kernel check failed")
+    return total
 
 
-def phase_dryrun_mesh():
-    """The dry run on the production meshes, each in its own process on a
-    ``"fake"`` group: olmo-1b train_4k at ``--mesh single`` (256 ranks)
-    and llama3.2-3b train_4k at ``--mesh multi --fl-step`` (512), both
-    ``status: ok`` with all-gather and all-reduce bytes; olmo-1b's
-    per-device FLOPs x 256 over its ``--mesh one`` count (``run_one`` in
-    this process; its 16 heads split over ``model`` 16: in [0.99,
-    2.0])."""
-    single, wall_single = _dryrun_cli("--arch", "olmo-1b", "--shape",
-                                      "train_4k", "--mesh", "single")
-    multi, wall_multi = _dryrun_cli("--arch", "llama3.2-3b", "--shape",
+def _sharded_expected(rec):
+    """The kernels' launches rank 0 must count for a record, for each
+    attention or wkv layer: a prefill's forward and a train step's (with
+    remat a forward and its recompute) and backward; the pod FL round
+    ``SHARDED_H_LOCAL`` train steps and one ``fedavg_agg`` launch.
+    Decode runs no kernel."""
+    cfg = _sharded_cfg(rec["config"])
+    attn, wkv = _attention_layers(cfg), _mixer_layers(cfg, "rwkv6")
+    train = 2 if cfg.remat else 1
+    if rec["step"] == POD_FL:
+        fwd, bwd, agg = train * SHARDED_H_LOCAL, SHARDED_H_LOCAL, 1
+    else:
+        fwd, bwd, agg = 1 + train, 1, 0
+    return {"fedavg_agg": agg, "flash_attention": fwd * attn,
+            "flash_attention_backward": bwd * attn, "wkv6": fwd * wkv,
+            "wkv6_backward": bwd * wkv}
+
+
+def _sharded_line(rec, ranks, card):
+    """One mesh and config's line from rank 0's record (and, on (2, 2),
+    every member's bf16 kernel checks), with its verdict."""
+    mesh, name = tuple(rec["mesh"]), rec["config"]
+    expected = _sharded_expected(rec)
+    coll = rec["collectives"]
+    need = ["all_gather_into_tensor"]
+    if len(mesh) == 3:
+        need.append("all_reduce")
+    elif mesh[0] > 1:
+        need.append("reduce_scatter_tensor")
+    coll_ok = all(coll.get(k, {}).get("count", 0) > 0
+                  and coll[k]["bytes"] > 0 for k in need)
+    errs = rec["max_rel_err"]
+    floor = rec.get("decode_halves_rel_err")
+    decode_tol = [max(SHARDED_TOL, DECODE_FLOOR_FACTOR * f)
+                  for f in floor or ()]
+    errs_ok = all(v <= SHARDED_TOL for k, v in errs.items()
+                  if k not in ("decode", "decode_by_position")) and all(
+        e <= t for e, t in zip(errs.get("decode_by_position", ()),
+                               decode_tol))
+    line = {"phase": "sharded_steps", "mesh": list(mesh),
+            "axes": (["pod", "data", "model"] if len(mesh) == 3
+                     else ["data", "model"]),
+            "config": name, "step": rec["step"], "ranks": rec["ranks"],
+            "route": "hoststage", "cuts": SHARDED_CUTS,
+            "tolerance": SHARDED_TOL, "max_rel_err": rec["max_rel_err"],
+            "walls_mesh_s": rec["walls_s"], "walls_one_s": rec["wall_one_s"],
+            "check_s": rec["check_s"],
+            "decode_one_device_halves_rel_err": floor,
+            "decode_tolerance_by_position": decode_tol,
+            "collectives_rank0": coll, "collectives_needed": need,
+            "launches_rank0": rec["launches"],
+            "launches_expected": expected}
+    ok = errs_ok and coll_ok and rec["launches"] == expected
+    if name in SHARDED_DENSE and BF16 in dict(SHARDED_MESHES)[mesh]:
+        members = [ranks[r]["bf16_kernels"][name] for r in rec["ranks"]]
+        line["bf16_kernels_on_shards"] = members
+        ok = ok and all(k["ok"] for m in members for k in m.values()) and all(
+            len(m) == 1 for m in members)
+    line["ok"], line["card"] = ok, card
+    return line
+
+
+class _DryRuns:
+    """``python -m repro_torch.launch.dryrun`` for each argument list of
+    ``DRYRUNS`` in a subprocess, all started on entry, so that they run
+    beside the host-bound ``roofline`` phase; stopped on exit if still
+    running; their output directories removed.  ``results()`` waits:
+    each JSON record and host wall."""
+
+    def __enter__(self):
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        self.runs = []
+        for key, args in DRYRUNS.items():
+            out = tempfile.mkdtemp(prefix="dryrun_")
+            log = open(os.path.join(out, "log"), "w")
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                 "--out", out], stdout=log, stderr=subprocess.STDOUT,
+                text=True, env=env, cwd=str(ROOT))
+            self.runs.append((key, args, proc, out, log,
+                              time.perf_counter()))
+        return self
+
+    def results(self, timeout=300):
+        recs = {}
+        for key, args, proc, out, log, t0 in self.runs:
+            rc = proc.wait(timeout=timeout)
+            wall = time.perf_counter() - t0
+            log.close()
+            if rc != 0:
+                raise RuntimeError(
+                    f"dryrun {' '.join(args)} failed:\n"
+                    f"{Path(out, 'log').read_text()[-4000:]}")
+            path = next(Path(out).glob("*.json"))
+            recs[key] = (json.loads(path.read_text()), wall)
+        return recs
+
+    def __exit__(self, *exc):
+        import shutil
+        for _, _, proc, out, log, _ in self.runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+            shutil.rmtree(out, ignore_errors=True)
+        return False
+
+
+DRYRUNS = {"olmo-1b_single": ("--arch", "olmo-1b", "--shape", "train_4k",
+                              "--mesh", "single"),
+           "llama3.2-3b_multi_fl": ("--arch", "llama3.2-3b", "--shape",
                                     "train_4k", "--mesh", "multi",
-                                    "--fl-step")
+                                    "--fl-step")}
+
+
+def phase_dryrun_mesh(dryruns):
+    """The dry run on the production meshes, each in its own process on a
+    ``"fake"`` group (``dryruns``, a :class:`_DryRuns`): olmo-1b
+    train_4k at ``--mesh single`` (256 ranks) and llama3.2-3b train_4k at
+    ``--mesh multi --fl-step`` (512), both ``status: ok`` with all-gather
+    and all-reduce bytes; olmo-1b's per-device FLOPs x 256 over its
+    ``--mesh one`` count (``run_one`` in this process; its 16 heads split
+    over ``model`` 16: in [0.99, 2.0])."""
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     one = dryrun.run_one("olmo-1b", "train_4k", "one")
     wall_one = time.perf_counter() - t0
-    ratio = single["flops_per_dev"] * 256 / one["flops_per_dev"]
-    recs = {"olmo-1b_single": (single, wall_single),
-            "llama3.2-3b_multi_fl": (multi, wall_multi)}
+    recs = dryruns.results()
+    ratio = (recs["olmo-1b_single"][0]["flops_per_dev"] * 256
+             / one["flops_per_dev"])
     rows, ok = {}, 0.99 <= ratio <= 2.0
     for key, (rec, wall) in recs.items():
         coll = rec["collective_bytes_per_dev"]
@@ -4232,12 +4901,7 @@ def main() -> int:
         print(f"chip_smoke: cannot import repro_torch ({exc}); run it from "
               f"the root of a checkout", file=sys.stderr)
         return 2
-    launchers = {"fedavg_agg": agg_kernel.weighted_aggregate,
-                 "flash_attention": fa_kernel.flash_attention,
-                 "flash_attention_backward":
-                     fa_kernel.flash_attention_backward,
-                 "wkv6": wkv_kernel.wkv,
-                 "wkv6_backward": wkv_kernel.wkv_backward}
+    launchers = _launchers()
     try:
         _run(phase_card, [(agg_kernel.SOURCE, agg_kernel.build),
                     (fa_kernel.SOURCE, fa_kernel.build),
@@ -4318,18 +4982,21 @@ def main() -> int:
                             + examples["wkv6_backward"])
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             sharded = _run(phase_sharded_steps, launchers, tmp)
+        launches += sharded["fedavg_agg"]
         fa_launches += sharded["flash_attention"]
         fa_bwd_launches += sharded["flash_attention_backward"]
         wkv_launches += sharded["wkv6"]
         wkv_bwd_launches += sharded["wkv6_backward"]
-        _run(phase_dryrun_mesh)
         fa_bwd_case = _run(phase_flash_backward_kernel, fa_kernel, fa_ref,
                                                   train_shapes,
                                                   moe_train_shapes,
                                                   hybrid_shapes, dense_shapes)
         wkv_bwd_case = _run(phase_wkv_backward_kernel, wkv_kernel, wkv_ref,
                                                  rwkv_train_shape)
-        _run(phase_roofline)
+        # the dry runs' processes run beside roofline: both are the host's
+        with _DryRuns() as dryruns:
+            _run(phase_roofline)
+            _run(phase_dryrun_mesh, dryruns)
     except Exception:  # report the failed phase, then fail the run
         traceback.print_exc()
         emit({"phase": "failed", "error": traceback.format_exc(limit=3)})

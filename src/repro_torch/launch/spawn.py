@@ -8,6 +8,8 @@ environment), and each
 
 1. joins a process group of ``backend`` through a ``file://`` store at
    ``init_file`` (no TCP port: several groups can start at once);
+   ``"hoststage"`` (:mod:`.hoststage`, the route for ranks that share
+   one card) is registered in the rank first;
 2. selects ``cuda:(rank % device_count)`` when ``device`` is ``"cuda"``
    (so several ranks can share one card);
 3. runs ``fn(rank, world, *args)`` and writes what it returns, pickled,
@@ -35,6 +37,9 @@ def _rank_main(rank: int, fn: Callable, world: int, backend: str,
                device: str, init_file: str, args: Sequence) -> None:
     if device == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
+    if backend == "hoststage":
+        from .hoststage import register
+        register()
     dist.init_process_group(backend, init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
     try:
@@ -47,12 +52,15 @@ def _rank_main(rank: int, fn: Callable, world: int, backend: str,
 
 def run_ranks(fn: Callable, world: int, init_file, args: Sequence = (), *,
               backend: str = "gloo", device: str = "cpu",
-              timeout: float = 600.0) -> List[Any]:
+              timeout: float = 600.0,
+              while_running: Callable[[], None] = None) -> List[Any]:
     """``[fn(0, world, *args), ..., fn(world - 1, world, *args)]``, each
     on its own spawned process in one process group (module docstring).
     ``init_file`` is a path that does not exist yet, in a directory the
     caller owns (a test's ``tmp_path``); the results are written beside
-    it."""
+    it.  ``while_running()``, if given, runs in the parent once the ranks
+    are started (its own work beside their start; what it raises stops
+    them)."""
     if device not in ("cpu", "cuda"):
         raise ValueError(f"device must be 'cpu' or 'cuda', got {device!r}")
     if device == "cuda" and not torch.cuda.is_available():
@@ -67,6 +75,8 @@ def run_ranks(fn: Callable, world: int, init_file, args: Sequence = (), *,
         nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:
+        if while_running is not None:
+            while_running()
         while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
             if time.monotonic() >= deadline:
                 raise TimeoutError(f"{world} ranks of {fn.__name__} ran "

@@ -337,9 +337,12 @@ def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, mask, cfg: ModelConfig,
     wk_b, wv_b = wkv_b[..., :dn], wkv_b[..., dn:]         # (r,H,dn),(r,H,dv)
     c = c_kv.to(torch.float32)
     q_lat = torch.einsum("bhsd,rhd->bhsr", q_nope.to(torch.float32), wk_b)
+    # k_rope's one head as an einsum over batch rows, not a broadcast
+    # matmul: that flattens (B, H) into one dim, which DTensor refuses
+    # when both are split (batch over data, heads over model)
     scores = (torch.einsum("bhsr,btr->bhst", q_lat, c)
-              + q_rope.to(torch.float32)
-              @ k_rope.to(torch.float32).transpose(-1, -2))
+              + torch.einsum("bhsd,btd->bhst", q_rope.to(torch.float32),
+                             k_rope[:, 0].to(torch.float32)))
     scores = scores / math.sqrt(dn + cfg.qk_rope_head_dim)
     scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1)
@@ -660,20 +663,30 @@ def _mamba_dt_bc(p, xi, x_dtype, st: int):
             proj[..., dt_rank + st:])
 
 
+def _causal_conv(x, w, b):
+    """The depthwise causal conv over the sequence: x (B, S, C) with
+    ``w``'s taps (K, C) and bias ``b`` (C,)."""
+    s, k = x.shape[1], w.shape[0]
+    xpad = F.pad(x, (0, 0, k - 1, 0))
+    return sum(xpad[:, i:i + s] * w[i] for i in range(k)) + b
+
+
 def mamba_apply(p, x, cfg: ModelConfig):
     """The Mamba mixer over a full sequence (prefill), plain torch as in
     the reference: in_proj, the depthwise causal conv over ``d_conv``
     taps (f32), SiLU, the selective scan, the skip term, the SiLU(z)
     gate, out_proj."""
-    _, s, d = x.shape
-    di = cfg.expand * d
+    di = cfg.expand * x.shape[-1]
     xz = shard(x @ p["in_proj"], "batch", None, "model")
     xi = shard(xz[..., :di], "batch", None, "model")
     z = shard(xz[..., di:], "batch", None, "model")
-    ck = p["conv_w"].shape[0]
-    xpad = F.pad(xi.to(torch.float32), (0, 0, ck - 1, 0))
-    conv = sum(xpad[:, i:i + s] * p["conv_w"][i] for i in range(ck))
-    xi = F.silu(conv + p["conv_b"])
+    # channel-wise too, so each rank convolves its own shards (DTensor's
+    # rule for the pad fails on a split batch under torch 2.11)
+    batch = A.batch_split_axes()
+    xi = F.silu(A.local_call(
+        _causal_conv, (xi.to(torch.float32), p["conv_w"], p["conv_b"]),
+        (("batch", None, "model"), (None, "model"), ("model",)),
+        ("batch", None, "model"), ((), batch, batch)))
     dt, b_t, c_t = _mamba_dt_bc(p, xi, x.dtype, cfg.d_state)
     a = -torch.exp(p["a_log"])
     # channel-wise: under a mesh each rank scans its own channels of di

@@ -223,6 +223,12 @@ def embed_inputs(params, cfg: ModelConfig, inputs):
 
 
 def unembed(params, cfg: ModelConfig, h):
+    # h made contiguous (the prefill's last position is a strided slice):
+    # a strided (B, S, D) by (D, V) matmul broadcasts the weight to a
+    # batched product, and DTensor materializes that, B copies of the
+    # weight's shard; contiguous, it is one mm (which rounds in its own
+    # last bits)
+    h = h.contiguous()
     if "lm_head" in params:
         return h @ gather_fsdp(params["lm_head"]["w"])
     return h @ gather_fsdp(params["embed"]["w"]).T

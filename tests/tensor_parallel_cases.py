@@ -104,10 +104,19 @@ def _jax_tree(name, seed=1):
 # ---------------------------------------------------------------------------
 def _gather(x):
     from repro_torch.sharding.activations import to_global
-    return to_global(x).detach().float().numpy().copy()
+    return to_global(x).detach().float().cpu().numpy().copy()
 
 
-def _rank_configs(rank, mesh, trees, decode_batch, layouts=()):
+def _place(step, tree, what="place"):
+    """``step.place(tree)`` (or ``place_cache``) on a mesh; from a step
+    made with ``mesh=None`` a copy of ``tree`` (``place`` copies too: a
+    donated step must not write into the caller's tensors)."""
+    from repro_torch.tree import tree_map
+    return getattr(step, what, lambda t: tree_map(torch.clone, t))(tree)
+
+
+def _rank_configs(rank, mesh, trees, decode_batch, layouts=(),
+                  device="cpu"):
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
     from repro_torch.convert import (transformer_params_from_jax,
@@ -123,40 +132,41 @@ def _rank_configs(rank, mesh, trees, decode_batch, layouts=()):
         cfg = _cfg(get_config, name)
         seq, batch = _shape(name)
         x, y = _inputs(cfg, batch, seq, seed=2)
-        params = transformer_params_from_jax(cfg, trees[name], device="cpu")
+        params = transformer_params_from_jax(cfg, trees[name], device=device)
         rec = {}
-        pre = make_prefill_step(cfg, device="cpu", mesh=mesh)
-        rec["prefill"] = _gather(pre(pre.place(params),
-                                     {"inputs": _torch(x)}))
+        pre = make_prefill_step(cfg, device=device, mesh=mesh)
+        rec["prefill"] = _gather(pre(_place(pre, params),
+                                     {"inputs": _torch(x).to(device)}))
         rec["layouts"] = A.layouts()
         step = make_sharded_train_step(cfg, InputShape("tp", seq, batch,
                                                        "train"),
-                                       lr=LR, device="cpu", mesh=mesh)
-        new, metrics = step(step.place(params),
-                            {"inputs": _torch(x), "labels": _torch(y)})
+                                       lr=LR, device=device, mesh=mesh)
+        new, metrics = step(_place(step, params),
+                            {"inputs": _torch(x).to(device),
+                             "labels": _torch(y).to(device)})
         rec["train"] = (transformer_params_to_numpy(
             cfg, tree_map(lambda t: torch.from_numpy(_gather(t)), new)),
             {k: float(v) for k, v in metrics.items()})
         dcfg = _cfg(get_config, name, decode=True)
         for b in (decode_batch,) if name in NAMES else ():
             xd, _ = _inputs(dcfg, b, DECODE_STEPS, seed=3)
-            sv = make_serve_step(dcfg, device="cpu", mesh=mesh,
+            sv = make_serve_step(dcfg, device=device, mesh=mesh,
                                  shape=InputShape("d", DECODE_LEN, b,
                                                   "decode"))
-            cache = sv.place_cache(T.init_cache(dcfg, b, DECODE_LEN,
-                                                device="cpu"))
-            placed = sv.place(params)
+            cache = _place(sv, T.init_cache(dcfg, b, DECODE_LEN,
+                                            device=device), "place_cache")
+            placed = _place(sv, params)
             logits = []
             for pos in range(DECODE_STEPS):
-                lg, cache = sv(placed, cache, _torch(xd[:, pos:pos + 1]),
-                               pos)
+                lg, cache = sv(placed, cache,
+                               _torch(xd[:, pos:pos + 1]).to(device), pos)
                 logits.append(_gather(lg))
             rec[f"decode{b}"] = np.stack(logits)
         out[name] = rec
     return out if rank == 0 else None
 
 
-def _fl_case(rank, trees):
+def _fl_case(rank, trees, device="cpu"):
     """The pod FL step on (pod 2, data 1, model 2): each pod one replica
     (the two replicas' params differ), sharded over ``model``; two
     local steps a round."""
@@ -168,32 +178,61 @@ def _fl_case(rank, trees):
     from repro_torch.launch.train import make_fl_train_step
     from repro_torch.tree import tree_map
     cfg = _cfg(get_config, "llama3.2-3b")
-    mesh = make_mesh((2, 1, 2), ("pod", "data", "model"), device="cpu")
+    mesh = make_mesh((2, 1, 2), ("pod", "data", "model"), device=device)
     pod = mesh.get_coordinate()[0]
     x, y = _inputs(cfg, 2 * FL_BATCH, FL_SEQ, seed=4)
-    reps = [transformer_params_from_jax(cfg, trees[key], device="cpu")
+    reps = [transformer_params_from_jax(cfg, trees[key], device=device)
             for key in ("fl0", "fl1")]
     step = make_fl_train_step(cfg, 2, InputShape("fl", FL_SEQ,
                                                  2 * FL_BATCH, "train"),
-                              lr=LR, h_local=2, device="cpu", mesh=mesh)
+                              lr=LR, h_local=2, device=device, mesh=mesh)
     mine = step.place(tree_map(lambda t: t[None].clone(), reps[pod]))
     rows = slice(pod * FL_BATCH, (pod + 1) * FL_BATCH)
-    new, metrics = step(mine, {"inputs": _torch(x[None, rows]),
-                               "labels": _torch(y[None, rows])})
+    new, metrics = step(mine, {"inputs": _torch(x[None, rows]).to(device),
+                               "labels": _torch(y[None, rows]).to(device)})
     got = transformer_params_to_numpy(
         cfg, tree_map(lambda t: torch.from_numpy(_gather(t)[0]), new))
     return got, {k: float(v) for k, v in metrics.items()}
 
 
-def _ranks_main(rank, world, shape, trees, decode_batch, fl, layouts):
+def _ranks_main(rank, world, shape, trees, decode_batch, fl, layouts,
+                device="cpu"):
     from repro_torch.launch.mesh import make_mesh
     torch.set_num_threads(1)
-    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    if device == "cuda":
+        _tf32_off()
+    mesh = make_mesh(shape, ("data", "model"), device=device)
     out = {"shape": shape, "decode_batch": decode_batch,
            "configs": _rank_configs(rank, mesh, trees, decode_batch,
-                                    layouts)}
+                                    layouts, device)}
     if fl:
-        out["fl"] = _fl_case(rank, trees)
+        out["fl"] = _fl_case(rank, trees, device)
+    return out
+
+
+def _tf32_off():
+    """Float32 products in float32 on the card (no TF32), as on the
+    CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def port_trees(fl=False):
+    """:func:`make_trees`' layout from the port's own init (no JAX: the
+    card's machine has none), seeded as :func:`make_trees` seeds."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import transformer_params_to_numpy
+    from repro_torch.models import transformer as T
+
+    def tree(name, seed):
+        cfg = _cfg(get_config, name)
+        return transformer_params_to_numpy(
+            cfg, T.init_params(cfg, seed=seed, device="cpu"))
+
+    out = {name: tree(name, 1) for name in NAMES}
+    if fl:
+        out["fl0"] = tree("llama3.2-3b", 5)
+        out["fl1"] = tree("llama3.2-3b", 6)
     return out
 
 
@@ -210,13 +249,14 @@ def make_trees(fl=False, layouts=False):
 
 
 def spawn(shape, trees, tmp_path_factory, decode_batch, fl=False,
-          layouts=()):
+          layouts=(), backend="gloo", device="cpu"):
     """Every rank's results on a ``shape`` ("data", "model") mesh (the
-    ``layouts`` cuts: prefill and train step only)."""
+    ``layouts`` cuts: prefill and train step only), its ranks in a
+    ``backend`` group on ``device``."""
     d = tmp_path_factory.mktemp(f"tp_{shape[0]}x{shape[1]}")
     return run_ranks(_ranks_main, shape[0] * shape[1], d / "store",
-                     (shape, trees, decode_batch, fl, tuple(layouts)),
-                     timeout=600)
+                     (shape, trees, decode_batch, fl, tuple(layouts),
+                      device), backend=backend, device=device, timeout=600)
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +369,19 @@ def check_pod_fl_step(ranks, trees):
     """The (pod 2, data 1, model 2) FL round against the port's one-device
     round over both replicas, from the same params and batch: every rank
     of both pods ends with the mean."""
+    want0, want_metrics = one_device_fl(trees)
+    for r, rank in enumerate(ranks):
+        got, metrics = rank["fl"]
+        _trees_close(got, want0, f"rank {r}")
+        for key in ("loss", "ce", "aux"):
+            np.testing.assert_allclose(metrics[key], float(want_metrics[key]),
+                                       rtol=TOL, atol=TOL, err_msg=key)
+
+
+def one_device_fl(trees, device="cpu"):
+    """The port's one-device FL round over both llama replicas from the
+    same params and batch as :func:`_fl_case`: replica 0's params (numpy)
+    and the metrics."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
     from repro_torch.convert import (transformer_params_from_jax,
@@ -336,20 +389,40 @@ def check_pod_fl_step(ranks, trees):
     from repro_torch.launch.train import make_fl_train_step
     from repro_torch.tree import tree_map
     cfg = _cfg(get_config, "llama3.2-3b")
-    reps = [transformer_params_from_jax(cfg, trees[k], device="cpu")
+    reps = [transformer_params_from_jax(cfg, trees[k], device=device)
             for k in ("fl0", "fl1")]
     stacked = tree_map(lambda a, b: torch.stack([a, b]), *reps)
     x, y = _inputs(cfg, 2 * FL_BATCH, FL_SEQ, seed=4)
     step = make_fl_train_step(cfg, 2, InputShape("fl", FL_SEQ, 2 * FL_BATCH,
                                                  "train"),
-                              lr=LR, h_local=2, device="cpu")
-    want, want_metrics = step(stacked, {
-        "inputs": _torch(x.reshape(2, FL_BATCH, FL_SEQ)),
-        "labels": _torch(y.reshape(2, FL_BATCH, FL_SEQ))})
-    want0 = transformer_params_to_numpy(cfg, tree_map(lambda t: t[0], want))
-    for r, rank in enumerate(ranks):
-        got, metrics = rank["fl"]
-        _trees_close(got, want0, f"rank {r}")
-        for key in ("loss", "ce", "aux"):
-            np.testing.assert_allclose(metrics[key], float(want_metrics[key]),
-                                       rtol=TOL, atol=TOL, err_msg=key)
+                              lr=LR, h_local=2, device=device)
+    want, metrics = step(stacked, {
+        "inputs": _torch(x.reshape(2, FL_BATCH, FL_SEQ)).to(device),
+        "labels": _torch(y.reshape(2, FL_BATCH, FL_SEQ)).to(device)})
+    want0 = transformer_params_to_numpy(
+        cfg, tree_map(lambda t: t[0].cpu(), want))
+    return want0, {k: float(v) for k, v in metrics.items()}
+
+
+def one_device(trees, decode_batch, device="cpu"):
+    """The port's own steps at ``mesh=None`` on ``device``, recorded as
+    rank 0 records its mesh's (``ranks[0]["configs"]``)."""
+    if device == "cuda":
+        _tf32_off()
+    return _rank_configs(0, None, trees, decode_batch, (), device)
+
+
+def check_against(ranks, want, name):
+    """Rank 0's prefill, train step (every param, the three metrics) and
+    decode for ``name`` within ``TOL`` of ``want[name]``
+    (:func:`one_device`'s)."""
+    got, want = ranks[0]["configs"][name], want[name]
+    b = ranks[0]["decode_batch"]
+    _close(got["prefill"], want["prefill"], f"{name} prefill")
+    _trees_close(got["train"][0], want["train"][0], name)
+    for key in ("loss", "ce", "aux"):
+        np.testing.assert_allclose(got["train"][1][key],
+                                   want["train"][1][key], rtol=TOL,
+                                   atol=TOL, err_msg=key)
+    _close(got[f"decode{b}"], want[f"decode{b}"],
+           f"{name} decode at batch {b}")

@@ -44,7 +44,8 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                  "optim.api", "analysis.contracts", "analysis.rules",
                  "analysis.__main__", "configs.paper_cnn", "launch.mesh",
                  "launch.op_analysis", "launch.dryrun", "kernels.region",
-                 "launch.spawn", "launch.gloo_probe", "sharding",
+                 "launch.spawn", "launch.gloo_probe", "launch.hoststage",
+                 "sharding",
                  "sharding.specs", "sharding.activations",
                  "examples.quickstart", "examples.offloading_walkthrough",
                  "examples.sagin_fl_end2end", "examples.multiarch_demo",
