@@ -528,7 +528,8 @@ def phase_main_path(launchers):
     # per-round wall seconds from the round spans' host clock (round 0
     # also holds the trainer's construction); clients aggregated per
     # round from the bucket dispatches
-    round_ends = [s.t_wall for s in tracer.spans if s.kind == "round"]
+    round_ends = [s.t_wall + s.dur_wall for s in tracer.spans
+                  if s.kind == "round"]
     per_round = [b - a for a, b in zip([0.0] + round_ends, round_ends)]
     clients = [sum(s.attrs["clients"] for s in tracer.spans
                    if s.kind == "bucket_dispatch" and s.round == r)
@@ -1021,7 +1022,8 @@ def phase_vgg11(agg_kernel):
     res = run_fl(cfg, tracer=tracer)
     torch.cuda.synchronize()
     launches = agg_kernel.weighted_aggregate.launches
-    round_ends = [s.t_wall for s in tracer.spans if s.kind == "round"]
+    round_ends = [s.t_wall + s.dur_wall for s in tracer.spans
+                  if s.kind == "round"]
     per_round = [b - a for a, b in zip([0.0] + round_ends, round_ends)]
     ok = (launches == cfg.n_rounds
           and all(math.isfinite(v) for v in res.accuracies + res.losses))
@@ -1137,7 +1139,8 @@ def phase_scenario_paper(launchers):
             total += launches
             cpu = run_fl(FLConfig(n_rounds=3, device="cpu", **kw),
                          params=params)
-            ends = [s.t_wall for s in tracer.spans if s.kind == "round"]
+            ends = [s.t_wall + s.dur_wall for s in tracer.spans
+                    if s.kind == "round"]
             acc_err = max(abs(a - b) for a, b in zip(res.accuracies,
                                                      cpu.accuracies))
             good = (launches == cfg.n_rounds and res.cases == cpu.cases

@@ -862,7 +862,7 @@ def check_host001(ctx: FileContext):
 # OBS001 — tracer/metrics call inside a jitted function
 # ---------------------------------------------------------------------------
 _OBS_METHODS = {"span", "event", "set_context", "flush", "counter", "gauge",
-                "histogram", "inc", "set", "observe", "wall_now"}
+                "histogram", "inc", "set", "observe", "wall_now", "phase"}
 _OBS_RECEIVERS = ("tracer", "metrics")
 
 

@@ -50,6 +50,10 @@ class SAGINOrchestrator:
     callable.  All randomness (satellite CPU draws) flows from the
     explicit ``rng`` generator; pass one spawned per region for
     reproducible multi-region simulations.
+
+    ``tracer`` is the run's :class:`repro_torch.obs.Tracer` (attached by
+    ``RegionTrainer``, as on the dynamics; the shared null tracer by
+    default): the strategy's plan is timed as an ``optimize`` phase.
     """
 
     def __init__(self, sagin: SAGIN,
@@ -61,6 +65,8 @@ class SAGINOrchestrator:
                  dynamics: Optional[object] = None,
                  intervals: Optional[Sequence[AccessInterval]] = None,
                  min_elevation_deg: float = 15.0):
+        from ..obs import NULL_TRACER
+        self.tracer = NULL_TRACER
         self.sagin = sagin
         self.constellation = constellation
         self.strategy = strategy
@@ -193,7 +199,10 @@ class SAGINOrchestrator:
     def step(self, r: int) -> RoundRecord:
         self._refresh_satellites()
         events = self._sample_events(r)
-        plan = self._plan_round(r)
+        with self.tracer.phase("optimize") as ph:
+            plan = self._plan_round(r)
+            if self.tracer.enabled:
+                ph.set(case=plan.case)
         if events is not None and events.offline_devices:
             self._strip_offline(plan, events.offline_devices)
         schedule = space_schedule(plan.new_sat_samples, self.sagin)

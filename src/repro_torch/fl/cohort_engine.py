@@ -55,7 +55,6 @@ same model.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -103,6 +102,38 @@ def cohort_tensors(cb, device: torch.device, rows=slice(None)):
             torch.from_numpy(cb.ys[rows]).to(device=device,
                                              dtype=torch.int64),
             torch.from_numpy(cb.mask[rows]).to(device))
+
+
+def bucket_name(cb) -> str:
+    """A bucket dispatch's span name: its layout ``C{c}xH{h}xB{b}``."""
+    c, h, b = cb.xs.shape[:3]
+    return f"C{c}xH{h}xB{b}"
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _cohort_attrs(cohort: Optional[BucketedCohort]) -> dict:
+    """The ``cohort_build`` phase's counts: buckets, the host bytes
+    gathered (xs + ys + mask), real and layout batch elements."""
+    if cohort is None:
+        return dict(buckets=0, bytes=0, real=0, layout=0)
+    return dict(buckets=len(cohort.buckets),
+                bytes=sum(cb.xs.nbytes + cb.ys.nbytes + cb.mask.nbytes
+                          for cb in cohort.buckets),
+                real=cohort.real_elements, layout=cohort.layout_elements)
+
+
+def _aggregate_attrs(params, weights: np.ndarray) -> dict:
+    """The ``aggregate`` phase's counts: the stacked clients eq. (13)
+    reduces, the real ones among them (weight above 0), and the bytes it
+    moves at the least: each stacked model read and the global written,
+    (clients + 1) x the model's bytes."""
+    clients = len(weights)
+    return dict(clients=clients,
+                real_clients=int(np.count_nonzero(weights)),
+                bytes=(clients + 1) * _nbytes(tree_leaves(params)))
 
 
 class CohortEngine:
@@ -160,12 +191,18 @@ class CohortEngine:
 
         On a sharded engine the planner additionally pads every bucket's
         client axis to a multiple of the shard count, so it splits over
-        the shards without a remainder."""
-        return build_bucketed_cohort(x, y, pools, n_steps, rng,
-                                     max_batch=max_batch,
-                                     batch_align=self.batch_align,
-                                     client_align=self.client_align,
-                                     client_multiple=self.shards)
+        the shards without a remainder.  Timed as the ``cohort_build``
+        phase."""
+        tr = self.tracer
+        with tr.phase("cohort_build") as ph:
+            cohort = build_bucketed_cohort(x, y, pools, n_steps, rng,
+                                           max_batch=max_batch,
+                                           batch_align=self.batch_align,
+                                           client_align=self.client_align,
+                                           client_multiple=self.shards)
+            if tr.enabled:
+                ph.set(**_cohort_attrs(cohort))
+        return cohort
 
     # -- execution ----------------------------------------------------------
     def _bucket_signature(self, cb) -> tuple:
@@ -196,11 +233,6 @@ class CohortEngine:
                    if per.sum() else 1.0)
             st.last_shard_imbalance = imb
             st.max_shard_imbalance = max(st.max_shard_imbalance, imb)
-            if self.tracer.enabled:
-                self.tracer.metrics.histogram(
-                    "cohort.shard_imbalance").observe(imb)
-                self.tracer.metrics.gauge(
-                    "cohort.shard_pad_clients").set(st.shard_pad_clients)
 
     def _shard_real_elements(self, cohort: BucketedCohort) -> np.ndarray:
         """Real (unmasked) batch elements each shard executes this round.
@@ -244,23 +276,12 @@ class CohortEngine:
         ``corrupt`` or ``quarantine`` send the round down the
         single-device path on every rank (module docstring).
         """
-        tr = self.tracer
         self.last_quarantined = 0
-        # new layouts = bucket shapes not seen before (the reference
-        # counts these as recompiles; the name is kept for its report)
-        fresh = sum(1 for cb in cohort.buckets
-                    if self._bucket_signature(cb) not in self.signatures)
-        warm = self.guard and not fresh
-        if tr.enabled:
-            m = tr.metrics
-            m.counter("cohort.recompiled_signatures").inc(fresh)
-            m.counter("cohort.bucket_dispatches").inc(len(cohort.buckets))
-            m.counter("cohort.real_elements").inc(cohort.real_elements)
-            m.counter("cohort.layout_elements").inc(cohort.layout_elements)
+        # a warm round: every bucket shape seen before
+        warm = self.guard and all(
+            self._bucket_signature(cb) in self.signatures
+            for cb in cohort.buckets)
         self._record(cohort)
-        if tr.enabled:
-            tr.metrics.gauge("cohort.padding_ratio").set(
-                self.stats.padding_ratio)
         if self.shards > 1 and not (corrupt or quarantine):
             def execute():
                 return self._execute_sharded(params, cohort, lr)
@@ -273,8 +294,20 @@ class CohortEngine:
                 return execute()
         return execute()
 
+    def _copy_bucket(self, cb, rows=slice(None)):
+        """:func:`cohort_tensors` timed as an ``h2d`` phase inside the
+        bucket's dispatch (with the bytes that land on the device)."""
+        tr = self.tracer
+        parent = bucket_name(cb) if tr.enabled else None
+        with tr.phase("h2d", parent=parent, device=self.device) as ph:
+            out = cohort_tensors(cb, self.device, rows)
+            if tr.enabled:
+                ph.set(bytes=_nbytes(out))
+        return out
+
     def _trace_dispatch(self, cb, t0: float):
-        """Emit one ``bucket_dispatch`` span (enabled tracer only).
+        """Emit one ``bucket_dispatch`` span (enabled tracer only) from
+        ``t0`` (tracer wall seconds) to now.
 
         ``dur_wall`` is host dispatch time; with
         ``ObsConfig.device_timing`` the device is synchronized first, so
@@ -283,7 +316,7 @@ class CohortEngine:
         tr = self.tracer
         if tr.device_timing and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        c, h, b = cb.xs.shape[0], cb.xs.shape[1], cb.xs.shape[2]
+        c, b = cb.xs.shape[0], cb.xs.shape[2]
         attrs = dict(clients=c, batch_width=b,
                      real=int(np.count_nonzero(cb.mask)),
                      layout=int(cb.mask.size), mesh_shape=[self.shards])
@@ -293,27 +326,21 @@ class CohortEngine:
             # dispatch-time breakdown apportions dur_wall by these
             attrs["shard_real"] = [int(v)
                                    for v in self._bucket_shard_real(cb)]
-        tr.span("bucket_dispatch", f"C{c}xH{h}xB{b}",
-                dur_wall=time.perf_counter() - t0, **attrs)
-        tr.metrics.histogram("cohort.dispatch_wall_s").observe(
-            time.perf_counter() - t0)
+        tr.span("bucket_dispatch", bucket_name(cb), t_wall=t0,
+                dur_wall=tr.wall_now() - t0, parent="round", **attrs)
 
     def _execute(self, params, cohort: BucketedCohort, lr: float,
                  total: int, corrupt: Sequence[int] = (),
                  quarantine: bool = False) -> Tuple[object, List[float]]:
-        trace = self.tracer.enabled
+        tr = self.tracer
         corrupt = set(corrupt)
-        # eq.-(13) weights over the concatenated client axis, bucket
-        # order; padding clients hold size 0 and therefore weight 0
-        w = np.concatenate([cb.sizes for cb in cohort.buckets])
-        weights = (w / max(1, total)).astype(np.float32)
         stacked_parts, loss_parts = [], []
         for bi, cb in enumerate(cohort.buckets):
-            t0 = time.perf_counter() if trace else 0.0
-            xs, ys, mask = cohort_tensors(cb, self.device)
+            t0 = tr.wall_now() if tr.enabled else 0.0
+            xs, ys, mask = self._copy_bucket(cb)
             stacked, losses = cohort_local_update(self.apply_fn, params,
                                                   xs, ys, mask, lr)
-            if trace:
+            if tr.enabled:
                 self._trace_dispatch(cb, t0)
             # fault injection: NaN-fill the victims' trained models AFTER
             # the update (the stack is this round's own) — every RNG draw
@@ -325,21 +352,29 @@ class CohortEngine:
                     losses[row] = float("nan")
             stacked_parts.append(stacked)
             loss_parts.append(losses)
-        dropped: List[int] = []
-        if quarantine:
-            weights, dropped = self._quarantine(cohort, stacked_parts,
-                                                weights)
-            self.last_quarantined = len(dropped)
-        if quarantine and weights.sum() <= 0:
-            # every real update was non-finite: keep the previous model
-            new_params = params
-        else:
-            new_params = fedavg_stacked_multi(
-                stacked_parts, torch.from_numpy(weights).to(self.device))
-        losses = self._scatter_losses(cohort, loss_parts)
-        if dropped:
-            bad = set(dropped)
-            losses = [v for i, v in enumerate(losses) if i not in bad]
+        with tr.phase("aggregate", device=self.device) as ph:
+            # eq.-(13) weights over the concatenated client axis, bucket
+            # order; padding clients hold size 0 and therefore weight 0
+            w = np.concatenate([cb.sizes for cb in cohort.buckets])
+            weights = (w / max(1, total)).astype(np.float32)
+            dropped: List[int] = []
+            if quarantine:
+                weights, dropped = self._quarantine(cohort, stacked_parts,
+                                                    weights)
+                self.last_quarantined = len(dropped)
+            if quarantine and weights.sum() <= 0:
+                # every real update was non-finite: keep the previous model
+                new_params = params
+            else:
+                new_params = fedavg_stacked_multi(
+                    stacked_parts, torch.from_numpy(weights).to(self.device))
+            if tr.enabled:
+                ph.set(**_aggregate_attrs(params, weights))
+        with tr.phase("losses"):
+            losses = self._scatter_losses(cohort, loss_parts)
+            if dropped:
+                bad = set(dropped)
+                losses = [v for i, v in enumerate(losses) if i not in bad]
         return new_params, losses
 
     @staticmethod
@@ -379,7 +414,7 @@ class CohortEngine:
         globally normalized weights, one all-reduce of the model and one
         of the losses.  The model is replicated on every rank before and
         after."""
-        trace = self.tracer.enabled
+        tr = self.tracer
         n = self.shards
         i = self.mesh.get_local_rank("data")
         w = np.concatenate([cb.sizes for cb in cohort.buckets]).astype(
@@ -390,21 +425,27 @@ class CohortEngine:
         for cb in cohort.buckets:
             c = cb.xs.shape[0]
             rows = slice(i * c // n, (i + 1) * c // n)
-            t0 = time.perf_counter() if trace else 0.0
-            xs, ys, mask = cohort_tensors(cb, self.device, rows)
+            t0 = tr.wall_now() if tr.enabled else 0.0
+            xs, ys, mask = self._copy_bucket(cb, rows)
             stacked, losses = cohort_local_update(self.apply_fn, params,
                                                   xs, ys, mask, lr)
-            if trace:
+            if tr.enabled:
                 self._trace_dispatch(cb, t0)
             parts.append(stacked)
             loss_parts.append(losses)
             shard_w.append(weights[off + rows.start:off + rows.stop])
             off += c
-        new_params = shard_weighted_aggregate_multi(
-            parts, torch.from_numpy(np.concatenate(shard_w)).to(
-                self.device), ("data",), self.mesh)
-        return new_params, self._scatter_losses(
-            cohort, self._gather_losses(cohort, loss_parts))
+        with tr.phase("aggregate", device=self.device) as ph:
+            shard_w = np.concatenate(shard_w)
+            new_params = shard_weighted_aggregate_multi(
+                parts, torch.from_numpy(shard_w).to(self.device),
+                ("data",), self.mesh)
+            if tr.enabled:
+                ph.set(**_aggregate_attrs(params, shard_w))
+        with tr.phase("losses"):
+            losses = self._scatter_losses(
+                cohort, self._gather_losses(cohort, loss_parts))
+        return new_params, losses
 
     def _gather_losses(self, cohort: BucketedCohort, loss_parts: List
                        ) -> List[torch.Tensor]:

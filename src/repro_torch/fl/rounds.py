@@ -426,6 +426,7 @@ class RegionTrainer:
 
         self.orch = _build_orchestrator(cfg, self.sagin, scenario=scn,
                                         intervals=intervals)
+        self.orch.tracer = self.tracer
         self._region_name = (self.region.name if self.region is not None
                              else f"region{cfg.region_index}")
         # fault injection (repro_torch.resilience): the engine attaches
@@ -496,22 +497,26 @@ class RegionTrainer:
         training metrics to :attr:`result`."""
         cfg = self.cfg
         tr = self.tracer
+        t_round = 0.0
         if tr.enabled:
+            t_round = tr.wall_now()
             # context BEFORE orch.step: dynamics samples (and emits
             # `outage` events) inside it, at this round's start clock
             tr.set_context(region=self._region_name, round=r,
                            t_sim=self.orch.wall_clock)
-        rec = self.orch.step(r)
-        specs = (self.faults.at(r, cfg.region_index)
-                 if self.faults is not None else ())
-        crash = self._apply_latency_faults(rec, specs)
-        _apply_plan_to_pools(rec.plan, self.pools, self.sagin)
-        _sync_sizes(self.pools, self.sagin)
+        with tr.phase("plan"):
+            rec = self.orch.step(r)
+        with tr.phase("pools"):
+            specs = (self.faults.at(r, cfg.region_index)
+                     if self.faults is not None else ())
+            crash = self._apply_latency_faults(rec, specs)
+            _apply_plan_to_pools(rec.plan, self.pools, self.sagin)
+            _sync_sizes(self.pools, self.sagin)
+            total = self.pools.total()
+            node_pools = _node_pools(cfg, self.pools,
+                                     offline=rec.offline_devices)
 
         # ---- local training at every node that holds data ----------------
-        total = self.pools.total()
-        node_pools = _node_pools(cfg, self.pools,
-                                 offline=rec.offline_devices)
         # nan_update: the first ceil(severity) canonical nodes' trained
         # models are NaN-filled AFTER training (the RNG stream is
         # untouched, so the chaos trajectory stays seed-reproducible)
@@ -553,11 +558,15 @@ class RegionTrainer:
         if n_quar:
             tr.metrics.counter("quarantine.updates").inc(n_quar)
 
-        _, acc = evaluate(self.apply_fn, self.params, self.x_eval,
-                          self.y_eval)
+        with tr.phase("evaluate") as ph:
+            _, acc = evaluate(self.apply_fn, self.params, self.x_eval,
+                              self.y_eval)
+            acc = float(acc)
+            if tr.enabled:
+                ph.set(samples=len(self.y_eval))
         res = self.result
         res.times.append(self.orch.wall_clock)
-        res.accuracies.append(float(acc))
+        res.accuracies.append(acc)
         res.losses.append(float(np.mean(losses)) if losses
                           else float("nan"))
         res.participated.append(bool(losses))
@@ -572,7 +581,7 @@ class RegionTrainer:
         self._last_isl_scale = (float(rec.events.isl_scale)
                                 if rec.events is not None else 1.0)
         if tr.enabled:
-            self._emit_round_spans(r, rec, res)
+            self._emit_round_spans(r, rec, res, t_round)
         return rec
 
     def _apply_latency_faults(self, rec, specs):
@@ -614,9 +623,10 @@ class RegionTrainer:
                 crash = spec
         return crash
 
-    def _emit_round_spans(self, r: int, rec, res: FLResult):
+    def _emit_round_spans(self, r: int, rec, res: FLResult, t_round: float):
         """Trace one completed round: offload transfer, handover legs,
-        and the round span itself (enabled path only).  Purely
+        and the round span itself (enabled path only), whose wall time
+        runs from ``t_round`` (the start of :meth:`step`) to now.  Purely
         observational — reads the round record, writes spans."""
         tr = self.tracer
         t0 = rec.wall_clock_start
@@ -629,9 +639,6 @@ class RegionTrainer:
         tr.span("offload", f"offload case{plan.case}", t_sim=t0,
                 case=plan.case, up_samples=up, down_samples=down,
                 bytes_moved=(up + down) * q_bits / 8.0)
-        tr.metrics.counter("offload.bytes").inc((up + down) * q_bits / 8.0)
-        tr.metrics.counter("offload.samples_up").inc(up)
-        tr.metrics.counter("offload.samples_down").inc(down)
 
         sched = rec.schedule
         prev = None
@@ -642,8 +649,6 @@ class RegionTrainer:
                         dur_sim=leg.handover_delay,
                         samples=leg.samples_processed)
             prev = leg.sat_index
-        if sched.n_handovers:
-            tr.metrics.counter("handover.count").inc(sched.n_handovers)
 
         ev = rec.events
         uplink_delay = (sum(ev.uplink_delays.values())
@@ -657,11 +662,8 @@ class RegionTrainer:
                 acc=res.accuracies[-1],
                 participated=res.participated[-1],
                 n_handovers=sched.n_handovers, t_space=sched.total_latency,
-                uplink_delay=uplink_delay)
-        tr.metrics.histogram("round.realized_latency_s").observe(
-            rec.realized_latency)
-        tr.metrics.histogram("round.overhead_s").observe(
-            rec.realized_latency - rec.latency)
+                uplink_delay=uplink_delay, t_wall=t_round,
+                dur_wall=tr.wall_now() - t_round)
 
 
 def run_fl(cfg: FLConfig, tracer=None, *, params=None) -> FLResult:

@@ -5,9 +5,9 @@ A :class:`Metrics` registry rides on every enabled
 get-or-create by name, so instrumentation sites never need to
 pre-declare them:
 
-    tracer.metrics.counter("offload.bytes").inc(bits / 8)
-    tracer.metrics.gauge("cohort.padding_ratio").set(stats.padding_ratio)
-    tracer.metrics.histogram("merge.staleness_s").observe(age)
+    tracer.metrics.counter("quarantine.updates").inc(n_dropped)
+    tracer.metrics.gauge(f"federation.isl_scale.{region}").set(scale)
+    tracer.metrics.histogram("serve.batch_real").observe(n_real)
 
 Determinism contract (same as the tracer's): instruments are pure
 accumulators — no RNG, no sampling.  The histogram keeps exact
@@ -25,7 +25,7 @@ from typing import Dict, List, Optional
 
 
 class Counter:
-    """Monotonic accumulator (events, bytes, recompiles)."""
+    """Monotonic accumulator (quarantined updates, resumes, requests)."""
 
     __slots__ = ("value",)
 
@@ -37,7 +37,7 @@ class Counter:
 
 
 class Gauge:
-    """Last-write-wins sample (padding ratio, realized ISL scale)."""
+    """Last-write-wins sample (realized ISL scale, queue depth)."""
 
     __slots__ = ("value",)
 

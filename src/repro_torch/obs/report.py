@@ -49,7 +49,7 @@ STRAGGLER_FACTOR = 1.5
 #: stay in lockstep with ``tracer.SPAN_KINDS`` (test-locked).
 HANDLED_KINDS = frozenset({
     "round", "offload", "handover", "merge", "bucket_dispatch", "outage",
-    "fault", "recovery", "resume", "request", "serve_batch",
+    "fault", "recovery", "resume", "request", "serve_batch", "phase",
 })
 
 #: Serving-plane kinds: reported in their own section, excluded from the

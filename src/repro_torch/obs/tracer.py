@@ -27,8 +27,18 @@ time), ``outage`` (a realized dynamics event: ISL fade, uplink
 dead-air, device churn), ``fault`` / ``recovery`` (one injected fault
 and its graceful-degradation response, from the fault injector),
 ``resume`` (an engine checkpoint restore), ``request`` (one served
-inference request, end-to-end, from the serving gateway), and ``serve_batch`` (one batched
-inference dispatch at a serving node, geometric-padded).
+inference request, end-to-end, from the serving gateway), ``serve_batch`` (one batched
+inference dispatch at a serving node, geometric-padded), and ``phase``
+(one timed host phase of a round: the plan, the pool moves, the cohort
+build, a bucket's copy to the device, the aggregate, the loss read-back,
+the evaluation; emitted by :meth:`Tracer.phase`, ``attrs["parent"]``
+naming the span that encloses it).
+
+Wall clocks: ``t_wall`` is ``time.perf_counter`` seconds since the
+tracer was built, and :attr:`Tracer.epoch_unix_ns` is ``time.time_ns``
+read beside that epoch, so :meth:`Tracer.unix_ns` places a span on the
+Unix-nanosecond clock of ``torch.profiler``'s events (and the Perfetto
+export carries the epoch in ``otherData``).
 
 Determinism contract: the tracer only OBSERVES.  It never draws from
 any RNG, never touches model parameters, and (``device_timing`` aside,
@@ -57,7 +67,7 @@ TRACE_SCHEMA = "repro-trace/1"
 
 SPAN_KINDS = ("round", "offload", "handover", "merge", "bucket_dispatch",
               "outage", "fault", "recovery", "resume", "request",
-              "serve_batch")
+              "serve_batch", "phase")
 
 #: Perfetto display category per span kind.  EVERY kind must have an
 #: entry — :func:`to_perfetto` indexes this mapping directly, so a kind
@@ -76,6 +86,7 @@ PERFETTO_KINDS = {
     "resume": "resilience",
     "request": "serving",
     "serve_batch": "serving",
+    "phase": "host",
 }
 
 #: Synthetic region name for cross-region events (merges) that belong to
@@ -90,9 +101,10 @@ class ObsConfig:
     ``path`` is the JSONL trace destination (``None`` keeps spans
     in memory only — still inspectable via ``tracer.spans`` and
     exportable by hand).  ``device_timing`` fences every cohort bucket
-    dispatch with ``torch.cuda.synchronize`` so ``bucket_dispatch``
-    spans carry true device time instead of async-dispatch time; it
-    changes performance, never results.  ``perfetto`` also writes a
+    dispatch, and every ``phase`` that queues device work, with
+    ``torch.cuda.synchronize`` so their spans carry true device time
+    instead of async-dispatch time; it changes performance, never
+    results.  ``perfetto`` also writes a
     Chrome-trace sibling (``trace.jsonl`` → ``trace.perfetto.json``)
     on flush.
     """
@@ -157,6 +169,9 @@ class Tracer:
         self.spans: List[Span] = []
         self.metrics: Metrics = Metrics() if self.enabled else NULL_METRICS
         self._epoch = time.perf_counter()
+        self.epoch_unix_ns = time.time_ns()
+        # names of the open phases, innermost last (Tracer.phase)
+        self._phases: List[str] = []
         # emission context (set by the round driver, read by inner layers)
         self.ctx_region = ""
         self.ctx_round = -1
@@ -166,6 +181,11 @@ class Tracer:
     def wall_now(self) -> float:
         """Host monotonic seconds since tracer construction."""
         return time.perf_counter() - self._epoch
+
+    def unix_ns(self, t_wall: float) -> int:
+        """A span time (``t_wall``) on the Unix-nanosecond clock that
+        ``torch.profiler``'s events carry (``start_ns()``)."""
+        return self.epoch_unix_ns + round(t_wall * 1e9)
 
     def set_context(self, region: Optional[str] = None,
                     round: Optional[int] = None,
@@ -210,6 +230,25 @@ class Tracer:
         """Zero-duration span (an instant on the timeline)."""
         return self.span(kind, name, **kw)
 
+    def phase(self, name: str, *, parent: Optional[str] = None,
+              device=None):
+        """Context manager timing one host phase as a ``phase`` span.
+
+        The span starts on entry and is recorded on exit (not when the
+        block raises), ``t_wall`` at its start and ``dur_wall`` its
+        length.  ``attrs["parent"]`` is ``parent`` when given, else the
+        innermost open phase, else ``"round"``.  With ``device_timing``
+        and a CUDA ``device`` the device is synchronized before the span
+        closes, so device work the phase queued counts in it.  The
+        phase's counts go in through the yielded object's
+        ``set(**attrs)``, which a call site guards with ``enabled`` (so
+        the disabled path builds no argument).  Disabled, this returns
+        one shared no-op: one call, no allocation.
+        """
+        if not self.enabled:
+            return _NULL_PHASE
+        return _Phase(self, name, parent, device)
+
     # -- export -------------------------------------------------------------
     def flush(self, path: Optional[str] = None) -> Optional[str]:
         """Write the buffered spans to ``path`` (default: the config's).
@@ -226,8 +265,64 @@ class Tracer:
             return None
         write_jsonl(dest, self.spans)
         if self.config.perfetto:
-            write_perfetto(perfetto_path(dest), self.spans)
+            write_perfetto(perfetto_path(dest), self.spans,
+                           epoch_unix_ns=self.epoch_unix_ns)
         return dest
+
+
+class _Phase:
+    """One open ``phase`` span of :meth:`Tracer.phase`."""
+
+    __slots__ = ("tracer", "name", "attrs", "device", "t_wall")
+
+    def __init__(self, tracer: Tracer, name: str, parent: Optional[str],
+                 device):
+        self.tracer = tracer
+        self.name = name
+        self.device = device
+        stack = tracer._phases
+        if parent is None:
+            parent = stack[-1] if stack else "round"
+        self.attrs = {"parent": parent}
+        self.t_wall = 0.0
+
+    def set(self, **attrs) -> None:
+        self.attrs.update(attrs)
+
+    def __enter__(self) -> "_Phase":
+        self.tracer._phases.append(self.name)
+        self.t_wall = self.tracer.wall_now()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        tr = self.tracer
+        tr._phases.pop()
+        if exc_type is None:
+            if (tr.device_timing
+                    and getattr(self.device, "type", None) == "cuda"):
+                import torch
+                torch.cuda.synchronize(self.device)
+            tr.span("phase", self.name, t_wall=self.t_wall,
+                    dur_wall=tr.wall_now() - self.t_wall, **self.attrs)
+        return False
+
+
+class _NullPhase:
+    """The disabled tracer's phase: one shared object that does nothing."""
+
+    __slots__ = ()
+
+    def set(self, **attrs) -> None:
+        pass
+
+    def __enter__(self) -> "_NullPhase":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        return False
+
+
+_NULL_PHASE = _NullPhase()
 
 
 #: Shared disabled tracer: every recording method early-returns, metrics
@@ -281,13 +376,16 @@ def perfetto_path(jsonl_path: str) -> str:
     return jsonl_path + ".perfetto.json"
 
 
-def to_perfetto(spans: Iterable[Span]) -> dict:
+def to_perfetto(spans: Iterable[Span],
+                epoch_unix_ns: Optional[int] = None) -> dict:
     """Chrome-trace / Perfetto JSON: one thread track per region.
 
     The timeline axis is the SIMULATED clock (µs since run start);
     wall-clock measurements ride along in each event's ``args``.
     Zero-duration spans become instant events (``ph: "i"``) on their
-    region's track.
+    region's track.  ``epoch_unix_ns`` (the tracer's, when known) goes
+    into ``otherData``: ``t_wall_s`` plus it is the Unix clock of a
+    ``torch.profiler`` trace.
     """
     spans = list(spans)
     regions = sorted({s.region or "global" for s in spans})
@@ -316,10 +414,14 @@ def to_perfetto(spans: Iterable[Span]) -> dict:
             events.append({**base, "ph": "X", "dur": s.dur_sim * 1e6})
         else:
             events.append({**base, "ph": "i", "s": "t"})
+    other = {"schema": TRACE_SCHEMA}
+    if epoch_unix_ns is not None:
+        other["epoch_unix_ns"] = int(epoch_unix_ns)
     return {"traceEvents": events, "displayTimeUnit": "ms",
-            "otherData": {"schema": TRACE_SCHEMA}}
+            "otherData": other}
 
 
-def write_perfetto(path: str, spans: Iterable[Span]) -> None:
+def write_perfetto(path: str, spans: Iterable[Span],
+                   epoch_unix_ns: Optional[int] = None) -> None:
     with open(path, "w", encoding="utf-8") as fh:
-        json.dump(to_perfetto(spans), fh)
+        json.dump(to_perfetto(spans, epoch_unix_ns), fh)

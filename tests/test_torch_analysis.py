@@ -126,6 +126,18 @@ def test_obs001_sees_the_ports_tracer(tmp_path):
                                              "repro.obs")))
     assert (_triples(scan([f], root=tmp_path))
             == _triples(ref_scan([f], root=tmp_path)))
+    # the port's phase helper on a tracer, which the reference's tracer
+    # does not have
+    f.write_text(textwrap.dedent("""
+        import jax
+
+        @jax.jit
+        def step(x, tracer):
+            with tracer.phase("plan"):
+                return x
+    """))
+    assert [g.rule for g in scan([f], root=tmp_path)] == ["OBS001"]
+    assert ref_scan([f], root=tmp_path) == []
 
 
 BAD_SRC = """

@@ -3,9 +3,9 @@
 ``repro_torch.obs.report`` is a copy of ``repro.obs.report``: for one
 trace both packages' ``analyze`` give the same report structure, the
 CLIs the same ``--json`` document, and ``render`` the same text.  That
-is checked on a port trace holding training, serving and ``resume``
-spans, on a trace of the port's ``python -m repro_torch.serve``, and on
-a reference trace.  The CLI's exit codes, its ``perfetto`` subcommand,
+is checked on a port trace holding training (its ``phase`` spans too),
+serving and ``resume`` spans, on a trace of the port's ``python -m
+repro_torch.serve``, and on a reference trace.  The CLI's exit codes, its ``perfetto`` subcommand,
 the span-vocabulary sync and the serving section are the reference's
 tests, ported.
 """
@@ -98,8 +98,8 @@ def _assert_same_report(path, capsys):
 
 def test_port_trace_reports_identically(port_trace, capsys):
     rep = _assert_same_report(port_trace, capsys)
-    assert {"round", "merge", "resume", "request",
-            "serve_batch"} <= set(rep.kinds)
+    assert {"round", "merge", "resume", "request", "serve_batch",
+            "phase"} <= set(rep.kinds)
     assert rep.resumes == 1 and rep.serving is not None
     text = render(rep)
     assert "resilience (" in text and "1 resume(s)" in text
@@ -168,6 +168,7 @@ def test_obs_module_runs_as_a_program(port_trace):
 
 def test_span_vocabulary_three_way_sync():
     assert set(SPAN_KINDS) == set(PERFETTO_KINDS.keys()) == set(HANDLED_KINDS)
+    assert "phase" in SPAN_KINDS and PERFETTO_KINDS["phase"] == "host"
     assert SERVING_KINDS <= HANDLED_KINDS
     assert {"request", "serve_batch"} <= SERVING_KINDS
     assert all(g for g in PERFETTO_KINDS.values())
